@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py            # the run the port is held to
+    python3 chip_smoke.py --profile  # also where a rollout chunk's time goes
+
+Phases, each of which exits non-zero on failure:
+
+1. Require CUDA; print the card's name and power limit (``nvidia-smi``).
+2. Build the CUDA kernels from ``relationalgraphlearning_tpu_torch/csrc/``
+   with ``nvcc`` for sm_90a.
+3. Hold every kernel against its plain PyTorch version on the card at the
+   slice's shapes (the first rebuild's graph of the 10,240-agent crowd: nb=40,
+   B=256, C=576, d=32) and on edge cases (rows with no edge, coverage < 1,
+   the unshifted softmax on unit rows, all three epilogues, dv != d), at
+   rtol=atol=1e-5; time kernel, plain version and one PyTorch call of the
+   same function (``scaled_dot_product_attention``, a yardstick only).
+4. The slice: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
+   backend with packed masks, B=256, C=576, rebuild every 8 steps. The
+   kernels' launch counts are zeroed just before and read just after; the
+   shared-table kernel must have launched 64 times (2 GCN layers x 32 steps).
+   Checks coverage 1, finite results, the block+kernel value net against the
+   gather backend on one rebuilt graph, and a small rollout on the card
+   against the same rollout on the CPU.
+5. Print the ``kernels`` line, the card line and the last line.
+
+Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from relationalgraphlearning_tpu_torch.configs.base import GCNConfig
+from relationalgraphlearning_tpu_torch.envs import mega_crowd
+from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
+from relationalgraphlearning_tpu_torch.ops import fused_block as fb
+from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+TOL = dict(rtol=1e-5, atol=1e-5)
+SLICE = dict(n=10240, K=10, steps=32, backend="block", packed=True,
+             block_B=256, block_C=576, rebuild_every=8)
+# Published dense peaks (NVIDIA data sheets): float32 outside the tensor
+# cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
+# the SXM part is the default.
+PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
+         ("H100", 67e12, 3.35e12))
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    for key, flops, bw in PEAKS:
+        if key in name:
+            return flops, bw
+    raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of ``fn``, from CUDA events around ``reps``
+    back-to-back calls. A sleep kernel queued first lets the host enqueue
+    all calls before the first runs, so host overhead does not show."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, flops: float, bw: float):
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slice_inputs(dev, C=576):
+    """The graph of the slice's first rebuild and the first GCN layer's
+    inputs (q = w_a(H), keys = values = H) under the smoke's seeded net."""
+    pos = mega_crowd.initial_crowd(SLICE["n"], device=dev)
+    vel = torch.zeros_like(pos)
+    pos, (vel,), cols, _, cand, mbits, cov = mega_crowd.rebuild(
+        pos, (vel,), SLICE["K"], "block", SLICE["block_B"], C, True)
+    net = seeded_net("block", dev)
+    states = torch.cat([pos, vel, torch.full_like(pos[:, :1], 0.3)], -1)
+    with torch.no_grad():
+        H = net.graph_model.w_h(states)
+        q = net.graph_model.w_a(H)
+    nb = cand.shape[0]
+    return q.reshape(nb, -1, q.shape[1]).contiguous(), H, cand, mbits, cov
+
+
+def seeded_net(backend, dev, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return SparseValueNet(GCNConfig(), backend=backend,
+                          generator=g).to(dev).eval()
+
+
+def unit_rows(t):
+    return t / t.norm(dim=-1, keepdim=True)
+
+
+# ------------------------------------------------------------------ phase 3
+def kernel_phase(dev, flops, bw, report):
+    qb, H, cand, mbits, cov = slice_inputs(dev)
+    if float(cov) != 1.0:
+        raise RuntimeError(f"slice graph coverage {float(cov)} != 1")
+    n, d = H.shape
+    nb, B, _ = qb.shape
+    C = cand.shape[1]
+
+    # The 1e-5 checks run unit-normal features at the slice's shapes on the
+    # slice's graph. The main path's own features (positions up to 200 m
+    # through w_h) reach scores of ~4.5e3, where float32 rounding of a score
+    # alone moves its softmax weight by more than 1e-5; those are held
+    # against float64 below instead.
+    g = torch.Generator(device="cpu").manual_seed(2)
+    qn, xn, v48, v32 = (torch.randn(*s, generator=g).to(dev)
+                        for s in ((nb, B, d), (n, d), (n, 48), (n, 32)))
+    uq, ux = unit_rows(qn), unit_rows(xn)
+    no_edge = mbits.clone()
+    no_edge[0, 0, :] &= ~0x1F                  # rows 0-4 of block 0: no edge
+    for c_cut in (448, 384, 320, 256):  # a window too small for the graph
+        _, _, cand_cut, mbits_cut, cov_cut = slice_inputs(dev, C=c_cut)
+        if float(cov_cut) < 1.0:
+            break
+    else:
+        raise RuntimeError("no window below C=576 dropped an edge")
+    report["notes"].append(f"coverage < 1 case: C={c_cut}, coverage "
+                           f"{float(cov_cut)}")
+
+    errs = {"shared": [], "separate": []}
+
+    def compare(kind, label, args, epilogue="none", stable=True,
+                zero_rows=False):
+        if kind == "shared":
+            got = fb.fused_block_attention_packed_shared(
+                *args, epilogue=epilogue, stable=stable)
+            want = fb.fused_block_attention_packed_shared_plain(
+                *args, epilogue=epilogue, stable=stable)
+        else:
+            got = fb.fused_block_attention_packed(
+                *args, epilogue=epilogue, stable=stable)
+            want = fb.fused_block_attention_packed_plain(
+                *args, epilogue=epilogue, stable=stable)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL,
+                                   msg=lambda m: f"{kind}/{label}: {m}")
+        if zero_rows and not (got[0, :5] == 0).all():
+            raise RuntimeError(f"{kind}/{label}: rows with no edge are "
+                               "not exactly 0")
+        err = float((got - want).abs().max())
+        errs[kind].append(err)
+        report["cases"].append(dict(kernel=kind, case=label,
+                                    epilogue=epilogue, stable=stable,
+                                    max_abs_err=err))
+
+    for epi in ("none", "l2norm", "relu"):
+        compare("shared", "slice graph", (qn, xn, cand, mbits), epi)
+        compare("shared", "unit rows, unshifted", (uq, ux, cand, mbits), epi,
+                stable=False)
+        compare("separate", "slice graph, dv=48", (qn, xn, v48, cand, mbits),
+                epi)
+        compare("separate", "unit rows, unshifted, dv=48",
+                (uq, ux, v48, cand, mbits), epi, stable=False)
+    compare("shared", "no-edge rows", (qn, xn, cand, no_edge),
+            zero_rows=True)
+    compare("separate", "no-edge rows", (qn, xn, v32, cand, no_edge),
+            zero_rows=True)
+    compare("shared", "coverage < 1", (qn, xn, cand_cut, mbits_cut))
+    compare("separate", "coverage < 1", (qn, xn, v32, cand_cut, mbits_cut))
+
+    # the main path's own layer-1 inputs, against float64: the error of each
+    # float32 version over the largest magnitude of its row
+    exact = fb.fused_block_attention_packed_shared_plain(
+        qb.double(), H.double(), cand, mbits)
+    scale = exact.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+
+    def row_rel(t):
+        return float(((t.double() - exact).abs() / scale).max())
+
+    kernel_rel = row_rel(fb.fused_block_attention_packed_shared(
+        qb, H, cand, mbits))
+    plain_rel = row_rel(fb.fused_block_attention_packed_shared_plain(
+        qb, H, cand, mbits))
+    report["main_path_features"] = dict(
+        kernel_row_rel_err=kernel_rel, plain_row_rel_err=plain_rel,
+        out_max=float(exact.abs().max()))
+    print(f"main-path features vs float64: kernel {kernel_rel:.3g}, plain "
+          f"{plain_rel:.3g} (row-relative)", flush=True)
+    if kernel_rel > 1e-5:
+        raise RuntimeError(f"kernel off float64 by {kernel_rel} of the row "
+                           "on the main path's features")
+
+    # time at the slice's shapes: the kernel, its plain version, and one
+    # PyTorch call of the same function as a yardstick
+    mask = fb.unpack_emask(mbits, B)
+    edges = int(mask.sum())
+    xg = H[cand.clamp(0, n - 1)]
+    vg = v32[cand.clamp(0, n - 1)]
+    rows = []
+    for kind, name, replaces, dv, fn, plain, lib in (
+        ("shared", "fused_block_attention_packed_shared",
+         "relationalgraphlearning_tpu/ops/pallas_block.py:192", d,
+         lambda: fb.fused_block_attention_packed_shared(qb, H, cand, mbits),
+         lambda: fb.fused_block_attention_packed_shared_plain(
+             qb, H, cand, mbits),
+         lambda: F.scaled_dot_product_attention(qb, xg, xg, attn_mask=mask,
+                                                scale=1.0)),
+        ("separate", "fused_block_attention_packed",
+         "relationalgraphlearning_tpu/ops/pallas_block.py:235", 32,
+         lambda: fb.fused_block_attention_packed(qb, H, v32, cand, mbits),
+         lambda: fb.fused_block_attention_packed_plain(
+             qb, H, v32, cand, mbits),
+         lambda: F.scaled_dot_product_attention(qb, xg, vg, attn_mask=mask,
+                                                scale=1.0)),
+    ):
+        ms = device_ms(fn)
+        plain_ms = device_ms(plain, reps=20)
+        try:
+            library_ms = device_ms(lib)
+        except RuntimeError as e:  # a yardstick only: note why it is absent
+            library_ms = None
+            report["notes"].append(f"{name}: library call failed: {e}")
+        tables = n * d * 4 + (0 if kind == "shared" else n * dv * 4)
+        nbytes = (qb.numel() * 4 + tables + cand.numel() * 8
+                  + mbits.numel() * 4 + nb * B * dv * 4)
+        # per edge: d multiply-adds for the score, dv for the value sum,
+        # one exp and one add for the denominator
+        ops = edges * (2 * d + 2 * dv + 2)
+        bound_ms, bound_by = bound(nbytes, ops, flops, bw)
+        dense_ops = nb * B * C * (2 * d + 2 * dv + 2)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="relationalgraphlearning_tpu_torch/csrc/"
+                   "fused_block_attention.cu",
+            replaces=replaces, launches=0,
+            max_abs_err=max(errs[kind]), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        report["kernel_detail"][name] = dict(
+            shapes=dict(nb=nb, B=B, C=C, d=d, dv=dv, n=n), edges=edges,
+            bytes=nbytes, ops=ops, dense_ops=dense_ops,
+            dense_bound_ms=bound(nbytes, dense_ops, flops, bw)[0],
+            cases=len(errs[kind]))
+        print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"library {library_ms} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by}), max_abs_err {max(errs[kind]):.3g} over "
+              f"{len(errs[kind])} cases", flush=True)
+    return rows
+
+
+# ------------------------------------------------------------------ phase 4
+def knn_overlap(pos, vel, rebuild_every):
+    """bench_extra.mega_crowd's staleness diagnostic: the share of each
+    agent's fresh 16-NN, one further chunk on, that a frozen graph keeps."""
+    stale = knn_graph_auto(pos, mega_crowd.K_GNN)
+    fresh = knn_graph_auto(pos + vel * mega_crowd.DT * rebuild_every,
+                           mega_crowd.K_GNN)
+    return float((fresh[:, :, None] == stale[:, None, :]).any(-1)
+                 .float().mean())
+
+
+def slice_phase(dev, report, runs=3):
+    """The slice's rollout, ``runs`` times after a warm-up: the host's clock
+    varies from run to run on a shared host, so the median is reported. Each
+    run zeroes the launch counts before it and checks them after."""
+    mega_crowd.mega_crowd_rollout(**{**SLICE, "steps": 8}, device=dev)
+    want = GCNConfig().num_layer * SLICE["steps"]
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        fb.reset_launch_counts()
+        t0 = time.perf_counter()
+        (pos, vel), vals, cov = mega_crowd.mega_crowd_rollout(**SLICE,
+                                                              device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = fb.launch_counts()
+        if launches["fused_block_attention_packed_shared"] != want:
+            raise RuntimeError(f"kernel launches in the rollout: {launches}, "
+                               f"want {want} of the shared-table kernel")
+    wall = statistics.median(walls)
+    if float(cov) != 1.0:
+        raise RuntimeError(f"minimum coverage {float(cov)} != 1")
+    for name, t in (("pos", pos), ("vel", vel), ("values", vals)):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"non-finite {name}")
+    if vals.shape != (SLICE["steps"],) or pos.shape != (SLICE["n"], 2):
+        raise RuntimeError(f"shapes {tuple(vals.shape)}, {tuple(pos.shape)}")
+    overlap = knn_overlap(pos, vel, SLICE["rebuild_every"])
+    rate = SLICE["n"] * SLICE["steps"] / wall
+
+    # the block+kernel value net equals the gather backend on one graph
+    pos_s, (vel_s,), cols, _, cand, mbits, _ = mega_crowd.rebuild(
+        pos, (vel,), SLICE["K"], "block", SLICE["block_B"], SLICE["block_C"],
+        True)
+    states = torch.cat([pos_s, vel_s, torch.full_like(pos_s[:, :1], 0.3)], -1)
+    with torch.no_grad():
+        v_block = seeded_net("block", dev)(states, cols, block_cand=cand,
+                                           block_emask=mbits)
+        v_gather = seeded_net("gather", dev)(states, cols)
+    torch.testing.assert_close(v_block, v_gather, **TOL)
+    net_err = float((v_block - v_gather).abs().max())
+
+    # a small rollout on the card equals the same rollout on the CPU
+    small = dict(SLICE, n=1024, steps=4, rebuild_every=2)
+    (pc, vc), valc, covc = mega_crowd.mega_crowd_rollout(**small,
+                                                         device="cpu")
+    (pg, vg), valg, covg = mega_crowd.mega_crowd_rollout(**small, device=dev)
+    for name, a, b in (("pos", pg, pc), ("vel", vg, vc),
+                       ("values", valg, valc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4,
+                                   msg=lambda m: f"small rollout {name}: {m}")
+    small_err = max(float((pg.cpu() - pc).abs().max()),
+                    float((vg.cpu() - vc).abs().max()),
+                    float((valg.cpu() - valc).abs().max()))
+
+    report["slice"] = dict(
+        config=SLICE, wall_s=wall, agent_steps_per_s=rate,
+        agent_steps_per_s_runs=[SLICE["n"] * SLICE["steps"] / w
+                                for w in walls],
+        coverage=float(cov), knn_overlap=overlap, launches=launches,
+        value_mean_last=float(vals[-1]), net_block_vs_gather_err=net_err,
+        small_rollout_cuda_vs_cpu_err=small_err)
+    print(f"slice: {rate:.1f} agent-steps/s, median of {runs} runs "
+          f"({wall:.3f} s for {SLICE['steps']} steps of {SLICE['n']} "
+          f"agents; runs {[round(w, 4) for w in walls]} s), coverage "
+          f"{float(cov)}, knn_overlap {overlap:.4f}, launches {launches}, "
+          f"net block vs gather {net_err:.3g}, small rollout card vs CPU "
+          f"{small_err:.3g}", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------- --profile
+def profile_phase(dev, report):
+    """Where one 8-step chunk of the slice's time goes: host time of each
+    section with a synchronise after it, the chunk's wall time without those
+    synchronises, and the profiler's device time by kernel over one more
+    chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from relationalgraphlearning_tpu_torch.envs.orca import (
+        ORCAParams, centralized_orca_step_knn)
+
+    cfg = SLICE
+    pos = mega_crowd.initial_crowd(cfg["n"], device=dev)
+    vel = torch.zeros_like(pos)
+    goals = -pos
+    rad = torch.full((cfg["n"],), 0.3, device=dev)
+    vmax = torch.ones_like(rad)
+    act = torch.ones_like(rad, dtype=torch.bool)
+    net = seeded_net("block", dev)
+    sections = ("rebuild", "orca", "value_net")
+
+    def chunk(times=None):
+        """One rebuild and its 8 steps; with ``times``, a synchronise closes
+        each section and its host time is added there."""
+        nonlocal pos, vel, goals, rad, vmax, act
+        t = time.perf_counter()
+
+        def close(section):
+            nonlocal t
+            if times is not None:
+                torch.cuda.synchronize()
+                times[section] += time.perf_counter() - t
+                t = time.perf_counter()
+
+        pos, (vel, goals, rad, vmax, act), cols, cols_orca, cand, em, _ = \
+            mega_crowd.rebuild(pos, (vel, goals, rad, vmax, act), cfg["K"],
+                               "block", cfg["block_B"], cfg["block_C"], True)
+        close("rebuild")
+        for _ in range(cfg["rebuild_every"]):
+            to = goals - pos
+            dist = torch.linalg.norm(to, dim=-1, keepdim=True)
+            pref = torch.where(dist > 1e-3, to / dist.clamp(min=1e-9), 0.0)
+            vel = centralized_orca_step_knn(pos, vel, rad, pref, vmax, act,
+                                            ORCAParams(), cfg["K"],
+                                            cols=cols_orca)
+            pos = pos + vel * mega_crowd.DT
+            close("orca")
+            with torch.no_grad():
+                states = torch.cat([pos, vel, rad[:, None]], -1)
+                net(states, cols, block_cand=cand, block_emask=em).mean()
+            close("value_net")
+
+    chunk()
+    torch.cuda.synchronize()
+    times = dict.fromkeys(sections, 0.0)
+    chunk(times)
+    t0 = time.perf_counter()
+    chunk()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"profile: one 8-step chunk {wall:.4f} s; host seconds with a "
+          f"sync after each section: {times}", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    kernels = [(ev.self_device_time_total, ev.count, ev.key)
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels) / 1e6
+    report["profile"] = dict(
+        chunk_wall_s=wall, section_host_s=times,
+        device_busy_s=busy, device_idle_share=1 - busy / wall,
+        kernel_launches=sum(k[1] for k in kernels),
+        top=[dict(device_us=u, count=c, name=k) for u, c, k in kernels[:25]])
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "profile_table.txt").write_text(prof.key_averages().table(
+        sort_by="self_cuda_time_total", row_limit=40))
+    print(f"profile: device busy {busy:.4f} s of the chunk's {wall:.4f} s "
+          f"(idle share {1 - busy / wall:.3f}), "
+          f"{sum(k[1] for k in kernels)} kernel launches", flush=True)
+    for u, c, k in kernels[:10]:
+        print(f"  {u / 1e3:10.3f} ms  x{c:<6d} {k[:90]}", flush=True)
+
+
+def backend_phase(dev, report, rounds=6):
+    """The slice's rollout under each aggregation path of the value net, in
+    turns (ABC CBA ABC ...), so that drift hits every path alike."""
+    paths = (("block+kernel", "block", True), ("block, plain", "block", False),
+             ("gather", "gather", False))
+    runs = {label: [] for label, _, _ in paths}
+    order = [p for r in range(rounds) for p in (paths if r % 2 == 0
+                                                 else paths[::-1])]
+    for label, backend, packed in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mega_crowd.mega_crowd_rollout(**{**SLICE, "backend": backend,
+                                         "packed": packed}, device=dev)
+        torch.cuda.synchronize()
+        runs[label].append(SLICE["n"] * SLICE["steps"]
+                           / (time.perf_counter() - t0))
+    report["backends"] = runs
+    medians = {k: statistics.median(v) for k, v in runs.items()}
+    print(f"backends, agent-steps/s, median of {rounds} runs each: "
+          f"{medians}; all runs: {runs}", flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also break one rollout chunk's time down and time "
+                         "the rollout under each aggregation path")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    flops, bw = peaks(name)
+    print(card, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}",
+          flush=True)
+    report = dict(card=card, device=name, peaks=dict(f32_flops=flops,
+                                                      bytes_per_s=bw),
+                  cases=[], notes=[], kernel_detail={})
+
+    t = time.perf_counter()
+    log = fb.build()
+    report["build"] = dict(seconds=time.perf_counter() - t, nvcc=log)
+    print(f"built {fb.library_path().name} in "
+          f"{report['build']['seconds']:.1f} s", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+
+    kernels = kernel_phase(dev, flops, bw, report)
+    launches = slice_phase(dev, report)
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    if args.profile:
+        profile_phase(dev, report)
+        backend_phase(dev, report)
+
+    report["kernels"] = kernels
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,21 +8,37 @@ Phases, each of which exits non-zero on failure:
 
 1. Require CUDA; print the card's name and power limit (``nvidia-smi``).
 2. Build the CUDA kernels from ``relationalgraphlearning_tpu_torch/csrc/``
-   with ``nvcc`` for sm_90a.
-3. Hold every kernel against its plain PyTorch version on the card at the
-   slice's shapes (the first rebuild's graph of the 10,240-agent crowd: nb=40,
-   B=256, C=576, d=32) and on edge cases (rows with no edge, coverage < 1,
-   the unshifted softmax on unit rows, all three epilogues, dv != d), at
-   rtol=atol=1e-5; time kernel, plain version and one PyTorch call of the
-   same function (``scaled_dot_product_attention``, a yardstick only).
-4. The slice: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
+   with ``nvcc`` for sm_90a, one ``nvcc`` a source, all at once.
+3. Hold kernels #1/#2 against their plain PyTorch versions on the card at
+   slice 1's shapes (the first rebuild's graph of the 10,240-agent crowd:
+   nb=40, B=256, C=576, d=32) and on edge cases (rows with no edge,
+   coverage < 1, the unshifted softmax on unit rows, all three epilogues,
+   dv != d), at rtol=atol=1e-5; time kernel, plain version and one PyTorch
+   call of the same function (``scaled_dot_product_attention``, a
+   yardstick only).
+3b. The same for kernels #3 (per-edge gather), #4/#7 (chunked fetch, groups
+   2 and 4), #5 (the r3 dense-mask form) and the aligned route of #1, at the
+   relation chain's shapes (n=8192, K=16, B=256, d=64 and 32) and, for #3,
+   at the pallas rollout's (n=10,240, d=32) with its own features held
+   against float64.
+4. Slice 1: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
    backend with packed masks, B=256, C=576, rebuild every 8 steps. The
    kernels' launch counts are zeroed just before and read just after; the
    shared-table kernel must have launched 64 times (2 GCN layers x 32 steps).
    Checks coverage 1, finite results, the block+kernel value net against the
    gather backend on one rebuilt graph, and a small rollout on the card
    against the same rollout on the CPU.
-5. Print the ``kernels`` line, the card line and the last line.
+5. The relation chain (``relation_chain.py``) at n=8192, K=16, d=64,
+   inner=100, B=256 over every route, and ``chunk_d32`` beside ``block`` at
+   d=32: coverage exactly 1, exactly ``inner`` launches of each route's
+   kernel (counts zeroed before each route), one application and the final
+   h of every route against the plain gather chain, and Gedges/s per route
+   as the median of interleaved runs.
+6. Slice 2's rollout: ``mega_crowd_rollout(n=10240, K=10, steps=32,
+   backend="pallas", rebuild_every=8)``: exactly 64 launches of kernel #3,
+   finite results, and the pallas, block+kernel and gather value nets equal
+   on one rebuilt graph.
+7. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -40,10 +56,15 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch.configs.base import GCNConfig
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
+from relationalgraphlearning_tpu_torch.ops import _build
+from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
+from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
+from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 
 ROOT = Path(__file__).resolve().parent
@@ -51,6 +72,20 @@ OUT_DIR = ROOT / "chiprun_out"
 TOL = dict(rtol=1e-5, atol=1e-5)
 SLICE = dict(n=10240, K=10, steps=32, backend="block", packed=True,
              block_B=256, block_C=576, rebuild_every=8)
+PALLAS = dict(n=10240, K=10, steps=32, backend="pallas", rebuild_every=8)
+CHAIN = dict(n=8192, K=16, inner=100, B=256, C=544)
+# The final h of every route after CHAIN["inner"] applications against the
+# plain gather chain's: the chain contracts (a CPU rehearsal at this size
+# drifted 1.5e-7), so the float32 sums of one application stay that small.
+CHAIN_FINAL_TOL = 1e-5
+CHAIN_CASES = (("gather", 64), ("gather_kernel", 64), ("block", 64),
+               ("chunk", 64), ("block", 32), ("chunk_d32", 32))
+ROUTE_KERNEL = {"gather_kernel": "fused_gather_attention",
+                "block": "fused_block_attention_packed_shared",
+                "chunk": "chunk_block_attention",
+                "chunk_d32": "chunk_block_attention"}
+SOURCES = ("fused_block_attention.cu", "fused_gather_attention.cu",
+           "chunk_block_attention.cu")
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
 # the SXM part is the default.
@@ -128,6 +163,12 @@ def unit_rows(t):
     return t / t.norm(dim=-1, keepdim=True)
 
 
+def row_rel_err(got, exact) -> float:
+    """max |got - exact| over the largest magnitude of exact's row."""
+    scale = exact.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    return float(((got.double() - exact).abs() / scale).max())
+
+
 # ------------------------------------------------------------------ phase 3
 def kernel_phase(dev, flops, bw, report):
     qb, H, cand, mbits, cov = slice_inputs(dev)
@@ -202,15 +243,10 @@ def kernel_phase(dev, flops, bw, report):
     # float32 version over the largest magnitude of its row
     exact = fb.fused_block_attention_packed_shared_plain(
         qb.double(), H.double(), cand, mbits)
-    scale = exact.abs().amax(-1, keepdim=True).clamp(min=1e-30)
-
-    def row_rel(t):
-        return float(((t.double() - exact).abs() / scale).max())
-
-    kernel_rel = row_rel(fb.fused_block_attention_packed_shared(
-        qb, H, cand, mbits))
-    plain_rel = row_rel(fb.fused_block_attention_packed_shared_plain(
-        qb, H, cand, mbits))
+    kernel_rel = row_rel_err(fb.fused_block_attention_packed_shared(
+        qb, H, cand, mbits), exact)
+    plain_rel = row_rel_err(fb.fused_block_attention_packed_shared_plain(
+        qb, H, cand, mbits), exact)
     report["main_path_features"] = dict(
         kernel_row_rel_err=kernel_rel, plain_row_rel_err=plain_rel,
         out_max=float(exact.abs().max()))
@@ -277,6 +313,246 @@ def kernel_phase(dev, flops, bw, report):
     return rows
 
 
+# ----------------------------------------------------------------- phase 3b
+def reset_counts():
+    for mod in (fb, fg, fc):
+        mod.reset_launch_counts()
+
+
+def counts() -> dict:
+    return {**fb.launch_counts(), **fg.launch_counts(), **fc.launch_counts()}
+
+
+def timed_row(report, name, replaces, source, fn, plain, lib, nbytes, ops,
+              flops, bw, errs, shapes):
+    ms = device_ms(fn)
+    plain_ms = device_ms(plain, reps=20)
+    try:
+        library_ms = device_ms(lib)
+    except RuntimeError as e:  # a yardstick only: note why it is absent
+        library_ms = None
+        report["notes"].append(f"{name}: library call failed: {e}")
+    bound_ms, bound_by = bound(nbytes, ops, flops, bw)
+    report["kernel_detail"][name] = dict(shapes=shapes, bytes=nbytes,
+                                         ops=ops, cases=len(errs))
+    print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+          f"{library_ms} ms, bound {bound_ms:.5f} ms by {bound_by}), "
+          f"max_abs_err {max(errs):.3g} over {len(errs)} cases", flush=True)
+    return dict(name=name, route="cuda",
+                source=f"relationalgraphlearning_tpu_torch/csrc/{source}",
+                replaces=replaces, launches=0, max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def pallas_inputs(dev):
+    """The pallas rollout's first graph (unsorted kNN, K=16) and its first
+    GCN layer's inputs under the smoke's seeded net: q = w_a(H), H."""
+    pos = mega_crowd.initial_crowd(PALLAS["n"], device=dev)
+    vel = torch.zeros_like(pos)
+    pos, (vel,), cols, _, _, _, _ = mega_crowd.rebuild(
+        pos, (vel,), PALLAS["K"], "pallas", 256, 576, False)
+    net = seeded_net("pallas", dev)
+    states = torch.cat([pos, vel, torch.full_like(pos[:, :1], 0.3)], -1)
+    with torch.no_grad():
+        H = net.graph_model.w_h(states)
+        q = net.graph_model.w_a(H)
+    return q, H, cols
+
+
+def kernel_phase_2(dev, flops, bw, report):
+    """Kernels #3, #4, #7, #5 and the aligned route of #1 against their plain
+    versions on the card, at rtol=atol=1e-5, and their times."""
+    n, K, B, C = CHAIN["n"], CHAIN["K"], CHAIN["B"], CHAIN["C"]
+    cols = rc.crowd_graph(n, K, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    errs = {k: [] for k in ("#3", "#4", "#7", "#5", "aligned")}
+
+    def compare(kernel, label, got, want, zero_rows=None):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL,
+                                   msg=lambda m: f"{kernel}/{label}: {m}")
+        if zero_rows is not None and not (zero_rows(got) == 0).all():
+            raise RuntimeError(f"{kernel}/{label}: rows with no edge are "
+                               "not exactly 0")
+        err = float((got - want).abs().max())
+        errs[kernel].append(err)
+        report["cases"].append(dict(kernel=kernel, case=label,
+                                    max_abs_err=err))
+
+    # ---- #3, the per-edge gather kernel: the chain's semantics
+    q64, x64, v48 = randn(n, 64), randn(n, 64), randn(n, 48)
+    mask = torch.rand(n, K, generator=g).to(dev) > 0.3
+    mask[:4] = False                               # fully masked rows
+    dup = cols.clone()
+    dup[:, 1] = dup[:, 0]                          # a duplicate neighbour
+    for label, args in (("chain graph, mask=None", (q64, x64, x64, cols)),
+                        ("masked, fully masked rows, dv=48",
+                         (q64, x64, v48, cols, mask)),
+                        ("duplicate cols", (q64, x64, x64, dup))):
+        compare("#3", label, fg.fused_gather_attention(*args),
+                fg.fused_gather_attention_plain(*args))
+    got = fg.fused_gather_attention(q64, x64, v48, cols, mask)
+    torch.testing.assert_close(got[:4], v48[cols[:4]].mean(1), **TOL)
+    qp, Hp, colsp = pallas_inputs(dev)
+    qn, xn = randn(*qp.shape), randn(*Hp.shape)
+    compare("#3", "rollout graph, d=32", fg.fused_gather_attention(
+        qn, xn, xn, colsp), fg.fused_gather_attention_plain(qn, xn, xn, colsp))
+    # the main path's own layer-1 inputs (scores ~4.5e3), against float64
+    exact = fg.fused_gather_attention_plain(qp.double(), Hp.double(),
+                                            Hp.double(), colsp)
+    kernel_rel = row_rel_err(fg.fused_gather_attention(qp, Hp, Hp, colsp),
+                             exact)
+    plain_rel = row_rel_err(fg.fused_gather_attention_plain(qp, Hp, Hp,
+                                                            colsp), exact)
+    report["pallas_main_path_features"] = dict(
+        kernel_row_rel_err=kernel_rel, plain_row_rel_err=plain_rel)
+    print(f"#3 on the pallas rollout's features vs float64: kernel "
+          f"{kernel_rel:.3g}, plain {plain_rel:.3g} (row-relative)",
+          flush=True)
+    if kernel_rel > 1e-5:
+        raise RuntimeError(f"kernel #3 off float64 by {kernel_rel} of the "
+                           "row on the main path's features")
+
+    # ---- #4 (d=64, groups=2) and #7 (d=32, groups=4), the chunked fetch
+    art = {}
+    for kernel, d, groups in (("#4", 64, 2), ("#7", 32, 4)):
+        starts, tail, mbits, cov = fc.chunk_window(cols, B, groups=groups)
+        if float(cov) != 1.0:
+            raise RuntimeError(f"{kernel}: chunk_window coverage {float(cov)}")
+        art[kernel] = (starts, tail, mbits)
+        qr, xr = randn(n, d), randn(n, d)
+        uq, ux = unit_rows(qr), unit_rows(xr)
+        no_edge = mbits.clone()
+        no_edge[0, 0, :] &= ~0x1F                 # rows 0-4: no edge
+        for epi in ("none", "l2norm", "relu"):
+            for label, (a, b), stable in (("stable", (qr, xr), True),
+                                          ("unit rows, unshifted", (uq, ux),
+                                           False)):
+                args = (a, b, starts, tail, mbits, epi, stable, groups)
+                compare(kernel, f"{label}, {epi}",
+                        fc.chunk_block_attention(*args),
+                        fc.chunk_block_attention_plain(*args))
+        args = (qr, xr, starts, tail, no_edge, "none", True, groups)
+        compare(kernel, "no-edge rows", fc.chunk_block_attention(*args),
+                fc.chunk_block_attention_plain(*args),
+                zero_rows=lambda o: o[:5])
+        for ct in (128, 64, 32):                  # a tail too small
+            cut = fc.chunk_window(cols, B, ct=ct, groups=groups)
+            if float(cut[3]) < 1.0:
+                break
+        else:
+            raise RuntimeError(f"{kernel}: no tail below 288 dropped an edge")
+        report["notes"].append(f"{kernel} coverage < 1 case: ct={ct}, "
+                               f"coverage {float(cut[3])}")
+        args = (qr, xr, *cut[:3], "none", True, groups)
+        compare(kernel, f"coverage < 1 (ct={ct})",
+                fc.chunk_block_attention(*args),
+                fc.chunk_block_attention_plain(*args))
+
+    # ---- #5, the r3 form: pre-gathered tables, f32 mask, divide first
+    cand, cov = bg.block_window(cols, B, C)
+    emask = bg.block_masks(cols, cand)
+    candc = cand.clamp(0, n - 1)
+    xg, vg = x64[candc].contiguous(), v48[candc].contiguous()
+    qb = q64.reshape(n // B, B, 64)
+    em_f = emask.float()
+    em_ne = em_f.clone()
+    em_ne[0, :5] = 0.0                             # rows 0-4: no edge
+    compare("#5", "chain window C=544", fb.fused_block_attention(
+        qb, xg, vg, em_f), fb.fused_block_attention_plain(qb, xg, vg, em_f))
+    compare("#5", "no-edge rows", fb.fused_block_attention(qb, xg, vg, em_ne),
+            fb.fused_block_attention_plain(qb, xg, vg, em_ne),
+            zero_rows=lambda o: o[0, :5])
+
+    # ---- the aligned route: kernel #1 through the expanded aligned cand
+    x32 = randn(n, 32)
+    starts_a, cand_a, _ = bg.block_window_aligned(cols, B, 1024, 8)
+    bits_a = fb.pack_emask(bg.block_masks(cols, cand_a))
+    for epi in ("none", "l2norm"):
+        args = (randn(n, 32), x32, x32, starts_a, 8, bits_a, epi)
+        compare("aligned", f"align 8, window 1024, {epi}",
+                fb.block_attention_fused_aligned(*args),
+                fb.block_attention_fused_aligned_plain(*args))
+
+    # ---- times: #3 at the pallas rollout's shapes with its features
+    rows = []
+    np_, dp = Hp.shape
+    Kp = colsp.shape[1]
+    kg = Hp[colsp]
+    rows.append(timed_row(
+        report, "fused_gather_attention", "tools/probe_mosaic_gather.py:68",
+        "fused_gather_attention.cu",
+        lambda: fg.fused_gather_attention(qp, Hp, Hp, colsp),
+        lambda: fg.fused_gather_attention_plain(qp, Hp, Hp, colsp),
+        lambda: F.scaled_dot_product_attention(qp[:, None], kg, kg,
+                                               scale=1.0),
+        4 * (2 * np_ * dp + np_ * dp) + 8 * colsp.numel(),
+        np_ * Kp * (4 * dp + 2), flops, bw, errs["#3"],
+        dict(n=np_, K=Kp, d=dp, dv=dp)))
+    # and at the chain's (a detail: the chain's gather_kernel route)
+    kg64 = x64[cols]
+    detail = dict(
+        ms=device_ms(lambda: fg.fused_gather_attention(q64, x64, x64, cols)),
+        plain_ms=device_ms(lambda: fg.fused_gather_attention_plain(
+            q64, x64, x64, cols), reps=20),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            q64[:, None], kg64, kg64, scale=1.0)),
+        bound=bound(4 * 3 * n * 64 + 8 * cols.numel(), n * K * (4 * 64 + 2),
+                    flops, bw))
+    report["kernel_detail"]["fused_gather_attention@chain"] = detail
+    print(f"kernel fused_gather_attention at the chain's shapes: {detail}",
+          flush=True)
+
+    # #4 and #7 at the chain's shapes on its unit features
+    for kernel, d, groups, replaces in (
+            ("#4", 64, 2, "relationalgraphlearning_tpu/ops/pallas_chunk.py:255"),
+            ("#7", 32, 4, "tools/probe_chunk_d32.py:122")):
+        starts, tail, mbits = art[kernel]
+        h = rc.seed_features(n, d, device=dev)
+        nb, ntot = mbits.shape[0], mbits.shape[-1]
+        ids = fc.chunk_slot_ids(starts, tail, n, (ntot - tail.shape[1])
+                                // starts.shape[1], groups)
+        win = h[ids]
+        wmask = fb.unpack_emask(mbits, B)
+        hb = h.reshape(nb, B, d)
+        edges = int(wmask.sum())
+        rows.append(timed_row(
+            report, f"chunk_block_attention[groups={groups}]", replaces,
+            "chunk_block_attention.cu",
+            lambda: fc.chunk_block_attention(h, h, starts, tail, mbits,
+                                             "l2norm", False, groups),
+            lambda: fc.chunk_block_attention_plain(h, h, starts, tail, mbits,
+                                                   "l2norm", False, groups),
+            lambda: F.scaled_dot_product_attention(hb, win, win,
+                                                   attn_mask=wmask,
+                                                   scale=1.0),
+            4 * (3 * n * d + starts.numel() + mbits.numel())
+            + 8 * tail.numel(), edges * (4 * d + 2), flops, bw,
+            errs[kernel], dict(n=n, B=B, d=d, ntot=ntot, groups=groups,
+                               edges=edges)))
+
+    # #5 at the chain's window (C=544, d=64)
+    edges = int(emask.sum())
+    rows.append(timed_row(
+        report, "fused_block_attention",
+        "relationalgraphlearning_tpu/ops/pallas_block.py:99",
+        "fused_block_attention.cu",
+        lambda: fb.fused_block_attention(qb, xg, vg, em_f),
+        lambda: fb.fused_block_attention_plain(qb, xg, vg, em_f),
+        lambda: F.scaled_dot_product_attention(qb, xg, vg, attn_mask=emask,
+                                               scale=1.0),
+        4 * (qb.numel() + xg.numel() + vg.numel() + em_f.numel()
+             + n * vg.shape[-1]), edges * (2 * 64 + 2 * 48 + 2), flops, bw,
+        errs["#5"], dict(n=n, B=B, C=C, d=64, dv=48, edges=edges)))
+    report["aligned_route_max_abs_err"] = max(errs["aligned"])
+    return rows
+
+
 # ------------------------------------------------------------------ phase 4
 def knn_overlap(pos, vel, rebuild_every):
     """bench_extra.mega_crowd's staleness diagnostic: the share of each
@@ -297,16 +573,18 @@ def slice_phase(dev, report, runs=3):
     walls = []
     for _ in range(runs):
         torch.cuda.synchronize()
-        fb.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         (pos, vel), vals, cov = mega_crowd.mega_crowd_rollout(**SLICE,
                                                               device=dev)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = fb.launch_counts()
-        if launches["fused_block_attention_packed_shared"] != want:
+        launches = counts()
+        expect = {k: 0 for k in launches}
+        expect["fused_block_attention_packed_shared"] = want
+        if launches != expect:
             raise RuntimeError(f"kernel launches in the rollout: {launches}, "
-                               f"want {want} of the shared-table kernel")
+                               f"want {expect}")
     wall = statistics.median(walls)
     if float(cov) != 1.0:
         raise RuntimeError(f"minimum coverage {float(cov)} != 1")
@@ -356,6 +634,131 @@ def slice_phase(dev, report, runs=3):
           f"{float(cov)}, knn_overlap {overlap:.4f}, launches {launches}, "
           f"net block vs gather {net_err:.3g}, small rollout card vs CPU "
           f"{small_err:.3g}", flush=True)
+    return launches
+
+
+# ------------------------------------------------------------------ phase 5
+def chain_phase(dev, report, rounds=5):
+    """The relation chain over every route. Each route's counts are zeroed
+    just before its checked run and read just after."""
+    n, K, inner = CHAIN["n"], CHAIN["K"], CHAIN["inner"]
+    cols = rc.crowd_graph(n, K, device=dev)
+    h0 = {d: rc.seed_features(n, d, device=dev) for d in (64, 32)}
+    gather = rc.prepare("gather", cols)
+    ref_one = {d: rc.apply(gather, h) for d, h in h0.items()}
+    ref_final = {d: rc.run(gather, h, inner) for d, h in h0.items()}
+    preps, result, launches = {}, {}, {}
+    for route, d in CHAIN_CASES:
+        label = f"{route}@d{d}"
+        prep = preps[label] = rc.prepare(route, cols, CHAIN["B"], CHAIN["C"])
+        cov = float(prep["coverage"])
+        if cov != 1.0:
+            raise RuntimeError(f"chain {label}: coverage {cov} != 1")
+        one = rc.apply(prep, h0[d])
+        torch.testing.assert_close(one, ref_one[d], **TOL,
+                                   msg=lambda m: f"chain {label}, one "
+                                                 f"application: {m}")
+        torch.cuda.synchronize()
+        reset_counts()
+        h = rc.run(prep, h0[d], inner)
+        torch.cuda.synchronize()
+        got = counts()
+        want = {k: 0 for k in got}
+        if route in ROUTE_KERNEL:
+            want[ROUTE_KERNEL[route]] = inner
+        if got != want:
+            raise RuntimeError(f"chain {label}: launches {got}, want {want}")
+        launches[label] = got
+        if not bool(torch.isfinite(h).all()):
+            raise RuntimeError(f"chain {label}: non-finite h")
+        final_err = float((h - ref_final[d]).abs().max())
+        if final_err > CHAIN_FINAL_TOL:
+            raise RuntimeError(f"chain {label}: final h off the gather chain "
+                               f"by {final_err} > {CHAIN_FINAL_TOL}")
+        result[label] = dict(
+            coverage=cov, one_step_err=float((one - ref_one[d]).abs().max()),
+            final_err=final_err, launches=got)
+
+    # Gedges/s: interleaved runs (ABC... then ...CBA), median per route
+    labels = [f"{r}@d{d}" for r, d in CHAIN_CASES]
+    runs = {label: [] for label in labels}
+    for r in range(rounds):
+        for label in (labels if r % 2 == 0 else labels[::-1]):
+            d = int(label.split("@d")[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc.run(preps[label], h0[d], inner)
+            torch.cuda.synchronize()
+            runs[label].append(n * K * inner / (time.perf_counter() - t0)
+                               / 1e9)
+    for label in labels:
+        result[label]["gedges_per_s"] = statistics.median(runs[label])
+        result[label]["gedges_per_s_runs"] = runs[label]
+        print(f"chain {label}: {result[label]['gedges_per_s']:.4f} Gedges/s "
+              f"(median of {rounds}), coverage {result[label]['coverage']}, "
+              f"one-step err {result[label]['one_step_err']:.3g}, final err "
+              f"{result[label]['final_err']:.3g}, launches "
+              f"{ {k: v for k, v in result[label]['launches'].items() if v} }",
+              flush=True)
+    report["chain"] = dict(config=CHAIN, final_tol=CHAIN_FINAL_TOL,
+                           routes=result)
+    return launches
+
+
+# ------------------------------------------------------------------ phase 6
+def pallas_phase(dev, report, runs=3):
+    """Slice 2's rollout on the per-edge gather kernel, ``runs`` times after
+    a warm-up; counts zeroed before each run and checked after."""
+    mega_crowd.mega_crowd_rollout(**{**PALLAS, "steps": 8}, device=dev)
+    want = GCNConfig().num_layer * PALLAS["steps"]
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        (pos, vel), vals, cov = mega_crowd.mega_crowd_rollout(**PALLAS,
+                                                              device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = counts()
+        expect = {k: 0 for k in launches}
+        expect["fused_gather_attention"] = want
+        if launches != expect:
+            raise RuntimeError(f"kernel launches in the pallas rollout: "
+                               f"{launches}, want {expect}")
+    wall = statistics.median(walls)
+    for name, t in (("pos", pos), ("vel", vel), ("values", vals)):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"pallas rollout: non-finite {name}")
+    if vals.shape != (PALLAS["steps"],) or pos.shape != (PALLAS["n"], 2):
+        raise RuntimeError(f"shapes {tuple(vals.shape)}, {tuple(pos.shape)}")
+    rate = PALLAS["n"] * PALLAS["steps"] / wall
+
+    # pallas, block+kernel and gather value nets on one rebuilt graph
+    pos_s, (vel_s,), cols, _, cand, mbits, cov_b = mega_crowd.rebuild(
+        pos, (vel,), PALLAS["K"], "block", SLICE["block_B"],
+        SLICE["block_C"], True)
+    if float(cov_b) != 1.0:
+        raise RuntimeError(f"block window coverage {float(cov_b)} != 1")
+    states = torch.cat([pos_s, vel_s, torch.full_like(pos_s[:, :1], 0.3)], -1)
+    with torch.no_grad():
+        v_pallas = seeded_net("pallas", dev)(states, cols)
+        v_block = seeded_net("block", dev)(states, cols, block_cand=cand,
+                                           block_emask=mbits)
+        v_gather = seeded_net("gather", dev)(states, cols)
+    torch.testing.assert_close(v_pallas, v_block, **TOL)
+    torch.testing.assert_close(v_pallas, v_gather, **TOL)
+    errs = dict(pallas_vs_block=float((v_pallas - v_block).abs().max()),
+                pallas_vs_gather=float((v_pallas - v_gather).abs().max()))
+    report["pallas_rollout"] = dict(
+        config=PALLAS, wall_s=wall, agent_steps_per_s=rate,
+        agent_steps_per_s_runs=[PALLAS["n"] * PALLAS["steps"] / w
+                                for w in walls],
+        launches=launches, value_mean_last=float(vals[-1]), **errs)
+    print(f"pallas rollout: {rate:.1f} agent-steps/s, median of {runs} runs "
+          f"({wall:.3f} s; runs {[round(w, 4) for w in walls]} s), launches "
+          f"{ {k: v for k, v in launches.items() if v} }, nets {errs}",
+          flush=True)
     return launches
 
 
@@ -448,10 +851,11 @@ def profile_phase(dev, report):
 
 
 def backend_phase(dev, report, rounds=6):
-    """The slice's rollout under each aggregation path of the value net, in
-    turns (ABC CBA ABC ...), so that drift hits every path alike."""
+    """The slice's rollout under each aggregation path of the value net
+    (block+kernel #1, plain block, gather, pallas = kernel #3), in turns
+    (ABCD DCBA ...), so that drift hits every path alike."""
     paths = (("block+kernel", "block", True), ("block, plain", "block", False),
-             ("gather", "gather", False))
+             ("gather", "gather", False), ("pallas", "pallas", False))
     runs = {label: [] for label, _, _ in paths}
     order = [p for r in range(rounds) for p in (paths if r % 2 == 0
                                                  else paths[::-1])]
@@ -494,18 +898,37 @@ def main() -> int:
                   cases=[], notes=[], kernel_detail={})
 
     t = time.perf_counter()
-    log = fb.build()
-    report["build"] = dict(seconds=time.perf_counter() - t, nvcc=log)
-    print(f"built {fb.library_path().name} in "
-          f"{report['build']['seconds']:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    logs = _build.build_all([_build.CSRC / src for src in SOURCES])
+    report["build"] = dict(seconds=time.perf_counter() - t, nvcc=logs)
+    print(f"built {', '.join(SOURCES)} in {report['build']['seconds']:.1f} s "
+          "(one nvcc each, in parallel)", flush=True)
+    for src, log in logs.items():
+        regs = sorted({line.split(":", 1)[1].strip() for line in
+                       log.splitlines() if "registers" in line})
+        spills = sorted({line.strip() for line in log.splitlines()
+                         if "spill" in line})
+        print(f"  ptxas {src}: {regs}; {spills}", flush=True)
 
     kernels = kernel_phase(dev, flops, bw, report)
-    launches = slice_phase(dev, report)
+    kernels += kernel_phase_2(dev, flops, bw, report)
+    slice_launches = slice_phase(dev, report)
+    chain_launches = chain_phase(dev, report)
+    pallas_launches = pallas_phase(dev, report)
+    # each kernel's launches on the path that runs it (0: no path does)
+    path_launches = {
+        "fused_block_attention_packed_shared":
+            slice_launches["fused_block_attention_packed_shared"],
+        "fused_block_attention_packed":
+            slice_launches["fused_block_attention_packed"],
+        "fused_gather_attention": pallas_launches["fused_gather_attention"],
+        "chunk_block_attention[groups=2]":
+            chain_launches["chunk@d64"]["chunk_block_attention"],
+        "chunk_block_attention[groups=4]":
+            chain_launches["chunk_d32@d32"]["chunk_block_attention"],
+        "fused_block_attention":
+            slice_launches["fused_block_attention"]}
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = path_launches[row["name"]]
     if args.profile:
         profile_phase(dev, report)
         backend_phase(dev, report)

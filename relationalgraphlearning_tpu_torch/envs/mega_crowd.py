@@ -6,8 +6,9 @@ agent and the 2-layer SparseRGL value net over the crowd. Graph
 construction — spatial sort (block backend), grid kNN, candidate windows and
 edge masks — runs once per ``rebuild_every`` steps and is reused (stale)
 within the chunk, while ORCA reads the current positions. With
-``backend="block", packed=True`` the GNN aggregation runs the fused CUDA
-kernel, two launches a step (one per GCN layer).
+``backend="block", packed=True`` the GNN aggregation runs the fused block
+kernel, and with ``backend="pallas"`` the per-edge gather kernel over the
+unsorted kNN graph: two launches a step either way (one per GCN layer).
 """
 
 from __future__ import annotations

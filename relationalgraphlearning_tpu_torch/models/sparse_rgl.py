@@ -19,6 +19,8 @@ from relationalgraphlearning_tpu_torch.models.mlp import MLP, init_linear_
 from relationalgraphlearning_tpu_torch.ops import block_graph, sparse
 from relationalgraphlearning_tpu_torch.ops.fused_block import (
     block_attention_fused)
+from relationalgraphlearning_tpu_torch.ops.fused_gather import (
+    fused_neighbor_attention)
 
 BACKENDS = ("gather", "block", "pallas")
 
@@ -31,7 +33,8 @@ class SparseRGL(nn.Module):
       ``block_cand`` from ``block_window``. A packed int32 ``block_emask``
       (``pack_emask``) runs the fused CUDA kernel; a bool mask runs
       ``block_graph.block_attention``.
-    - ``"pallas"``: the per-edge fused gather kernel, not ported yet.
+    - ``"pallas"``: the per-edge fused gather kernel (``ops/fused_gather.py``,
+      CUDA on the card, the plain chain on the CPU) over ``cols``.
     """
 
     def __init__(self, cfg: GCNConfig, backend: str = "gather",
@@ -60,10 +63,8 @@ class SparseRGL(nn.Module):
         layer weight applied after aggregation (values == keys == H)."""
         q = self.w_a(H)
         if self.backend == "pallas":
-            raise NotImplementedError(
-                "backend='pallas' is the per-edge fused gather kernel "
-                "(ROADMAP Queue B #3), not ported yet")
-        if self.backend == "block":
+            agg = fused_neighbor_attention(q, H, H, cols, mask)
+        elif self.backend == "block":
             if block_cand is None:
                 raise ValueError("backend='block' needs block_window "
                                  "candidates (block_cand)")

@@ -1,0 +1,118 @@
+"""How every CUDA source of ``csrc/`` is built and loaded.
+
+Each ``csrc/*.cu`` is compiled by ``nvcc`` for sm_90a into a shared library
+with a plain C interface, loaded with ``ctypes``. The library's name carries
+the hash of the source, of the headers it may include (``csrc/*.cuh``) and
+of the flags, so an edited source builds anew. Libraries go to the
+git-ignored ``_build/`` at first use. ``build_all`` starts one ``nvcc`` per
+source, all at once, and waits for them together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Dynamic shared memory a block may opt into on Hopper (sm_90): 227 KB.
+MAX_SMEM_BYTES = 232_448
+
+_loaded: dict = {}
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the kernels of csrc/")
+    return found
+
+
+def library_path(source: Path) -> Path:
+    """Where ``source``'s library lives."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(sources) -> dict:
+    """Compile every source not yet built, one ``nvcc`` each, in parallel.
+    Returns {source name: nvcc's report (registers, shared memory, spills),
+    or "" when it was built already}. Raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, logs = {}, {}
+    for src in sources:
+        out = library_path(src)
+        if out.exists():
+            logs[src.name] = ""
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[src.name] = (out, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if need be."""
+    lib = _loaded.get(source)
+    if lib is None:
+        build_all([source])
+        lib = ctypes.CDLL(str(library_path(source)))
+        _loaded[source] = lib
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (0 means launched)."""
+    if err != 0:
+        lib_err = lib.rgl_error_string
+        lib_err.argtypes = [ctypes.c_int]
+        lib_err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}, "
+                           f"{lib_err(err).decode()}")
+
+
+def check_tensors(device, **tensors) -> None:
+    """Raise unless every ``name=(tensor, dtype)`` is a contiguous CUDA
+    tensor of that dtype on ``device``: what a kernel takes."""
+    for name, (t, dtype) in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} is not on a CUDA device")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the kernel runs on "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def check_smem(nbytes: int, what: str) -> None:
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory a CTA; "
+                         f"the card allows {MAX_SMEM_BYTES}")

@@ -1,13 +1,14 @@
 """Windowed dense neighbour attention: spatial sort, candidate windows, masks.
 
-Port of ``relationalgraphlearning_tpu/ops/block_graph.py`` (the unaligned
-variants). Nodes are sorted into grid-cell order; each block of ``B`` sorted
+Port of ``relationalgraphlearning_tpu/ops/block_graph.py``. Nodes are sorted into grid-cell order; each block of ``B`` sorted
 rows gets a deduplicated, ascending candidate list of ``C`` node ids (the
 union of its rows' kNN neighbours); ``block_masks`` marks each row's true
 edges inside that window. The masked dense softmax over the window then
 equals the per-row softmax over the K neighbours whenever ``coverage`` is 1.
 
-All integer artifacts (``perm``, ``cand``, ``emask``) are bit-equal to the
+``block_window_aligned`` builds the same windows out of ``align``-row slices
+(``gather_aligned`` fetches them). All integer artifacts (``perm``,
+``cand``, ``starts``, ``emask``) are bit-equal to the
 reference's; ``tests/test_torch_block_graph.py`` holds them so.
 """
 
@@ -72,6 +73,42 @@ def block_window(cols: Tensor, block_size: int, window: int,
     sl = torch.searchsorted(cand, ids).clamp(0, window - 1)
     coverage = (torch.gather(cand, 1, sl) == ids).float().mean()
     return cand, coverage
+
+
+def block_window_aligned(cols: Tensor, block_size: int, window: int,
+                         align: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """Aligned-slice candidate windows: candidates are ``align``-row slice
+    starts instead of single rows.
+
+    Returns ``(starts [nb, S], cand [nb, S·align], coverage)`` with
+    S = window // align: ``starts`` sorted ascending in units of ``align``
+    rows (sentinel n // align), ``cand`` the expanded row ids (sorted; feed
+    to ``block_masks``/``pack_emask`` unchanged), ``coverage`` the fraction
+    of edges whose target's slice made the window.
+    """
+    n, K = cols.shape
+    if n % block_size or window % align:
+        raise ValueError(f"n={n}, block_size={block_size}, window={window}, "
+                         f"align={align}: n must divide into blocks and the "
+                         "window into slices")
+    nb = n // block_size
+    S = window // align
+    starts, coverage = block_window(
+        torch.div(cols, align, rounding_mode="floor"), block_size, S,
+        sentinel=n // align)
+    cand = (starts[:, :, None] * align
+            + torch.arange(align, dtype=cols.dtype, device=cols.device)
+            ).reshape(nb, S * align)
+    return starts, cand, coverage
+
+
+def gather_aligned(x: Tensor, starts: Tensor, align: int) -> Tensor:
+    """Fetch the aligned slices: x [n, d], starts [nb, S] (units of ``align``
+    rows) → [nb, S·align, d]."""
+    n, d = x.shape
+    nb, S = starts.shape
+    xa = x.reshape(n // align, align * d)
+    return xa[starts.clamp(0, n // align - 1)].reshape(nb, S * align, d)
 
 
 def block_masks(cols: Tensor, cand: Tensor,

@@ -1,12 +1,15 @@
-"""Fused windowed block attention: the CUDA kernel's wrappers and plain twins.
+"""Fused windowed block attention: the CUDA kernels' wrappers and plain twins.
 
 Counterpart of ``relationalgraphlearning_tpu/ops/pallas_block.py``. The
-kernel (``csrc/fused_block_attention.cu``) computes, per block of B query
-rows, scores against the block's C candidate rows, a masked row softmax with
-the bitpacked edge mask, and the value aggregation with the divide after the
-value product, then an optional ``l2norm``/``relu`` epilogue — the math of
-``pallas_block._masked_softmax_agg``. Unlike the Pallas kernel it takes the
-node table and ``cand`` and gathers the candidate rows itself.
+packed kernels (``csrc/fused_block_attention.cu``, #1 and #2) compute, per
+block of B query rows, scores against the block's C candidate rows, a masked
+row softmax with the bitpacked edge mask, and the value aggregation with the
+divide after the value product, then an optional ``l2norm``/``relu``
+epilogue — the math of ``pallas_block._masked_softmax_agg``. Unlike the
+Pallas kernels they take the node table and ``cand`` and gather the
+candidate rows themselves. The r3 kernel (#5, ``fused_block_attention``)
+takes pre-gathered tables and a dense 0/1 mask, and divides before the value
+product, as ``pallas_block._kernel`` does.
 
 Packed masks are ``int32`` with the reference's bits: torch on the CPU
 cannot shift ``uint32``, so the port keeps the same 32 bits as a signed word.
@@ -19,78 +22,32 @@ its kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 from torch import Tensor
+
+from relationalgraphlearning_tpu_torch.ops import _build
 
 _NEG = -1e30
 _EPILOGUES = {"none": 0, "l2norm": 1, "relu": 2}
 _MAX_FEATURES = 128         # kMaxF * 32 in the CUDA source
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "fused_block_attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = _build.CSRC / "fused_block_attention.cu"
 
 _lib = None
 
 
 # ------------------------------------------------------------------ the build
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/fused_block_attention.cu")
-    return found
-
-
-def library_path() -> Path:
-    """Where the built library lives; the name carries the source's hash,
-    so an edited source builds anew."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfused_block_attention_{tag}.so"
-
-
-def build_command(out: Path) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)]
-
-
-def build() -> str:
-    """Compile the kernel for sm_90a unless it is built; return nvcc's
-    report (registers, shared memory, spills) or "" when it was built."""
-    out = library_path()
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(build_command(tmp), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
-
-
 def _library():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
+        lib = _build.load(SOURCE)
         lib.fba_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.fba_launch.restype = ctypes.c_int
-        lib.fba_error_string.argtypes = [ctypes.c_int]
-        lib.fba_error_string.restype = ctypes.c_char_p
+        lib.fba_dense_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.fba_dense_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -168,17 +125,9 @@ def _check(qb: Tensor, x: Tensor, v: Tensor, cand: Tensor, mbits: Tensor,
     nb, B, d = qb.shape
     n, dx = x.shape
     C = cand.shape[-1]
-    for name, t, dt in (("qb", qb, torch.float32), ("x", x, torch.float32),
-                        ("v", v, torch.float32), ("cand", cand, torch.int64),
-                        ("mbits", mbits, torch.int32)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} is not on a CUDA device")
-        if t.device != qb.device:
-            raise ValueError(f"{name} is on {t.device}, qb on {qb.device}")
-        if t.dtype != dt:
-            raise TypeError(f"{name} is {t.dtype}, the kernel takes {dt}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    _build.check_tensors(qb.device, qb=(qb, torch.float32),
+                         x=(x, torch.float32), v=(v, torch.float32),
+                         cand=(cand, torch.int64), mbits=(mbits, torch.int32))
     if B % 32:
         raise ValueError(f"B={B} is not a multiple of 32")
     if dx != d or v.shape[0] != n:
@@ -191,6 +140,14 @@ def _check(qb: Tensor, x: Tensor, v: Tensor, cand: Tensor, mbits: Tensor,
         raise ValueError(f"d={d}, dv={v.shape[1]}: the kernel takes 1..128")
     if epilogue not in _EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r} not in {list(_EPILOGUES)}")
+    _build.check_smem(window_smem_bytes(C, d), f"a window of C={C} at d={d}")
+
+
+def window_smem_bytes(C: int, d: int) -> int:
+    """Shared memory a CTA of the windowed kernels takes (block_attention.cuh
+    ``window_smem_bytes``): C rows of d floats, C mask words and ids, and a
+    score row of C floats for each of 8 warps."""
+    return 4 * (C * d + 2 * C + 8 * C)
 
 
 def _launch(qb, x, v, cand, mbits, shared, epilogue, stable) -> Tensor:
@@ -205,10 +162,8 @@ def _launch(qb, x, v, cand, mbits, shared, epilogue, stable) -> Tensor:
             mbits.data_ptr(), out.data_ptr(), nb, B, cand.shape[1], d, dv,
             x.shape[0], int(shared), int(stable), _EPILOGUES[epilogue],
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fused_block_attention launch failed (C={cand.shape[1]}, "
-            f"d={d}): CUDA error {err}, {lib.fba_error_string(err).decode()}")
+    _build.check_launch(lib, err, f"fused_block_attention (C={cand.shape[1]}"
+                        f", d={d})")
     return out
 
 
@@ -238,10 +193,61 @@ def fused_block_attention_packed(
     return out
 
 
+# ------------------------------------------------- the r3 kernel (kernel #5)
+def fused_block_attention_plain(qb: Tensor, xg: Tensor, vg: Tensor,
+                                emask: Tensor) -> Tensor:
+    """Plain transcription of ``pallas_block._kernel`` (the r3 kernel):
+    stable masked softmax with the divide BEFORE the value product."""
+    m = emask > 0
+    scores = torch.einsum("nbd,ncd->nbc", qb, xg).masked_fill(~m, _NEG)
+    smax = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - smax) * m
+    attn = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-20)
+    return torch.einsum("nbc,ncd->nbd", attn, vg)
+
+
+def fused_block_attention(qb: Tensor, xg: Tensor, vg: Tensor,
+                          emask: Tensor) -> Tensor:
+    """Kernel #5, the r3 form: qb [nb, B, d], pre-gathered xg [nb, C, d] and
+    vg [nb, C, dv], emask [nb, B, C] (bool or 0/1; the kernel reads f32) →
+    [nb, B, dv]."""
+    if not qb.is_cuda:
+        return fused_block_attention_plain(qb, xg, vg, emask)
+    if emask.dtype != torch.float32:
+        emask = emask.to(torch.float32)
+    nb, B, d = qb.shape
+    C, dv = xg.shape[1], vg.shape[2]
+    _build.check_tensors(qb.device, qb=(qb, torch.float32),
+                         xg=(xg, torch.float32), vg=(vg, torch.float32),
+                         emask=(emask, torch.float32))
+    if B % 32:
+        raise ValueError(f"B={B} is not a multiple of 32")
+    if (xg.shape != (nb, C, d) or vg.shape[:2] != (nb, C)
+            or emask.shape != (nb, B, C)):
+        raise ValueError(f"xg {tuple(xg.shape)} / vg {tuple(vg.shape)} / "
+                         f"emask {tuple(emask.shape)} do not fit qb "
+                         f"{tuple(qb.shape)}")
+    if not (1 <= d <= _MAX_FEATURES and 1 <= dv <= _MAX_FEATURES):
+        raise ValueError(f"d={d}, dv={dv}: the kernel takes 1..128")
+    _build.check_smem(window_smem_bytes(C, d), f"a window of C={C} at d={d}")
+    out = torch.empty((nb, B, dv), dtype=torch.float32, device=qb.device)
+    lib = _library()
+    with torch.cuda.device(qb.device):
+        err = lib.fba_dense_launch(
+            qb.data_ptr(), xg.data_ptr(), vg.data_ptr(), emask.data_ptr(),
+            out.data_ptr(), nb, B, C, d, dv,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(lib, err, f"fused_block_attention r3 (C={C}, d={d})")
+    fused_block_attention.launches += 1
+    return out
+
+
 fused_block_attention_packed_shared.launches = 0
 fused_block_attention_packed.launches = 0
+fused_block_attention.launches = 0
 
 
+# ------------------------------------------------------------- entry points
 def block_attention_fused(q: Tensor, x: Tensor, v: Tensor, cand: Tensor,
                           emask: Tensor, epilogue: str = "none",
                           stable: bool = True) -> Tensor:
@@ -266,13 +272,58 @@ def block_attention_fused(q: Tensor, x: Tensor, v: Tensor, cand: Tensor,
     return out.reshape(n, -1)
 
 
+def aligned_cand(starts: Tensor, align: int) -> Tensor:
+    """The expanded row ids of ``block_window_aligned``'s slice starts:
+    [nb, S] → [nb, S·align] (sentinel starts give ids ≥ n, clipped by the
+    kernel; their mask bits are never set)."""
+    nb, S = starts.shape
+    offs = torch.arange(align, dtype=starts.dtype, device=starts.device)
+    return (starts[:, :, None] * align + offs).reshape(nb, S * align)
+
+
+def block_attention_fused_aligned_plain(
+        q: Tensor, x: Tensor, v: Tensor, starts: Tensor, align: int,
+        mbits: Tensor, epilogue: str = "none", stable: bool = True) -> Tensor:
+    """The reference's composition: ``gather_aligned`` tables, then the
+    packed kernel's math."""
+    # imported here: block_graph imports this module for pack_emask
+    from relationalgraphlearning_tpu_torch.ops.block_graph import (
+        gather_aligned)
+
+    n, dq = q.shape
+    nb = starts.shape[0]
+    xg = gather_aligned(x, starts, align)
+    vg = xg if v is x else gather_aligned(v, starts, align)
+    out = masked_softmax_agg_plain(q.reshape(nb, n // nb, dq), xg, vg, mbits,
+                                   epilogue, stable)
+    return out.reshape(n, -1)
+
+
+def block_attention_fused_aligned(
+        q: Tensor, x: Tensor, v: Tensor, starts: Tensor, align: int,
+        mbits: Tensor, epilogue: str = "none", stable: bool = True) -> Tensor:
+    """Counterpart of ``pallas_block.block_attention_pallas_aligned``:
+    candidates arrive as ``align``-row slice starts [nb, S]
+    (``block_graph.block_window_aligned``) with the packed mask over their
+    S·align expanded slots. The kernels gather through ``cand`` themselves,
+    so the expanded ids go straight to kernel #1 (x is v) or #2, with no
+    ``gather_aligned`` table in between."""
+    if not q.is_cuda:
+        return block_attention_fused_aligned_plain(q, x, v, starts, align,
+                                                   mbits, epilogue, stable)
+    return block_attention_fused(q, x, v, aligned_cand(starts, align), mbits,
+                                 epilogue, stable)
+
+
 def reset_launch_counts() -> None:
     fused_block_attention_packed_shared.launches = 0
     fused_block_attention_packed.launches = 0
+    fused_block_attention.launches = 0
 
 
 def launch_counts() -> dict:
     return {"fused_block_attention_packed_shared":
             fused_block_attention_packed_shared.launches,
             "fused_block_attention_packed":
-            fused_block_attention_packed.launches}
+            fused_block_attention_packed.launches,
+            "fused_block_attention": fused_block_attention.launches}

@@ -1,7 +1,6 @@
-"""kNN graph construction and the fixed-K attention chain, in PyTorch.
+"""kNN graph construction, the fixed-K attention chain and the edge-list ops.
 
-Port of ``relationalgraphlearning_tpu/ops/sparse.py`` (graphs and the
-fixed-degree ops). The fixed-K chain ``sddmm_fixed_k`` → ``neighbor_softmax``
+Port of ``relationalgraphlearning_tpu/ops/sparse.py``. The fixed-K chain ``sddmm_fixed_k`` → ``neighbor_softmax``
 → ``spmm_fixed_k`` is SparseRGL's gather backend and the exactness
 cross-check of the block path.
 
@@ -13,7 +12,7 @@ sort of the distances does the same, so ``_smallest_k`` uses that in place of
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -22,8 +21,9 @@ _NEG = -1e30
 
 
 def _smallest_k(d2: Tensor, k: int) -> Tensor:
-    """Indices of the k smallest entries of each row, ties by lower index."""
-    return torch.sort(d2, dim=-1, stable=True).indices[..., :k]
+    """Indices of the k smallest entries of each row, ties by lower index,
+    as a contiguous [..., k] tensor (the kernels take contiguous ids)."""
+    return torch.sort(d2, dim=-1, stable=True).indices[..., :k].contiguous()
 
 
 # --------------------------------------------------------------------- graphs
@@ -131,3 +131,56 @@ def neighbor_softmax(scores: Tensor, mask: Optional[Tensor] = None) -> Tensor:
 def spmm_fixed_k(attn: Tensor, h: Tensor, cols: Tensor) -> Tensor:
     """out[i] = Σ_k attn[i,k] · h[cols[i,k]] — the GCN aggregation."""
     return torch.einsum("nk,nkd->nd", attn, h[cols])
+
+
+# --------------------------------------------------------------- edge-list ops
+def sddmm_edges(q: Tensor, x: Tensor, rows: Tensor, cols: Tensor,
+                edge_valid: Optional[Tensor] = None) -> Tensor:
+    """score[e] = q[rows[e]] · x[cols[e]] for an edge list [E]."""
+    s = (q[rows] * x[cols]).sum(-1)
+    if edge_valid is not None:
+        s = s.masked_fill(~edge_valid, _NEG)
+    return s
+
+
+def segment_softmax(scores: Tensor, rows: Tensor, num_rows: int,
+                    edge_valid: Optional[Tensor] = None) -> Tensor:
+    """Softmax over edges sharing a source row. A row whose max is not
+    finite (no edge at all) is shifted by 0, as in the reference."""
+    if edge_valid is not None:
+        scores = scores.masked_fill(~edge_valid, _NEG)
+    row_max = torch.full((num_rows,), float("-inf"), dtype=scores.dtype,
+                         device=scores.device)
+    row_max = row_max.scatter_reduce(0, rows, scores, reduce="amax")
+    row_max = torch.where(torch.isfinite(row_max), row_max, 0.0)
+    e = torch.exp(scores - row_max[rows])
+    if edge_valid is not None:
+        e = e.masked_fill(~edge_valid, 0.0)
+    denom = torch.zeros((num_rows,), dtype=e.dtype, device=e.device)
+    denom = denom.index_add(0, rows, e)
+    return e / torch.clamp(denom[rows], min=1e-20)
+
+
+def spmm_edges(attn: Tensor, h: Tensor, rows: Tensor, cols: Tensor,
+               num_rows: int) -> Tensor:
+    """out[i] = Σ_{e: rows[e]=i} attn[e] · h[cols[e]]."""
+    out = torch.zeros((num_rows, h.shape[1]), dtype=h.dtype, device=h.device)
+    return out.index_add(0, rows, attn[:, None] * h[cols])
+
+
+# ----------------------------------------------------------- layout conversion
+def fixed_k_to_edges(cols: Tensor) -> Tuple[Tensor, Tensor]:
+    """cols [n, k] → (rows [n·k], cols [n·k]), row-major."""
+    n, k = cols.shape
+    rows = torch.arange(n, device=cols.device).repeat_interleave(k)
+    return rows, cols.reshape(-1)
+
+
+def dense_adjacency(scores_or_attn: Tensor, cols: Tensor, n: int) -> Tensor:
+    """Scatter fixed-K values back to a dense [n, n] matrix (testing);
+    duplicate neighbours add up."""
+    rows, flat = fixed_k_to_edges(cols)
+    out = torch.zeros((n, n), dtype=scores_or_attn.dtype,
+                      device=scores_or_attn.device)
+    return out.index_put((rows, flat), scores_or_attn.reshape(-1),
+                         accumulate=True)

@@ -117,3 +117,32 @@ def test_knn_then_block_on_port_only_equals_gather():
     want = tsp.spmm_fixed_k(
         tsp.neighbor_softmax(tsp.sddmm_fixed_k(h, h, cols)), h, cols)
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("n,K,B,window,align", [(1024, 8, 128, 512, 8),
+                                                (1024, 16, 128, 1024, 16),
+                                                (512, 8, 64, 96, 8)])
+def test_block_window_aligned_exact(n, K, B, window, align):
+    """The last case is too small: coverage < 1 in both."""
+    pos = _sorted_crowd(n, 11)
+    cols = np.asarray(jsp.knn_graph(jnp.asarray(pos), K))
+    st_j, cand_j, cov_j = jbg.block_window_aligned(jnp.asarray(cols), B,
+                                                   window, align)
+    st_t, cand_t, cov_t = tbg.block_window_aligned(
+        torch.from_numpy(np.array(cols)).long(), B, window, align)
+    np.testing.assert_array_equal(st_t.numpy(), np.asarray(st_j))
+    np.testing.assert_array_equal(cand_t.numpy(), np.asarray(cand_j))
+    assert float(cov_t) == float(cov_j)
+    assert (float(cov_t) < 1.0) == (window == 96)
+
+
+def test_gather_aligned_matches():
+    n, B, align = 512, 64, 8
+    pos = _sorted_crowd(n, 12)
+    cols = np.asarray(jsp.knn_graph(jnp.asarray(pos), 8))
+    starts, _, _ = jbg.block_window_aligned(jnp.asarray(cols), B, 256, align)
+    x = np.random.RandomState(13).randn(n, 24).astype(np.float32)
+    want = jbg.gather_aligned(jnp.asarray(x), starts, align)
+    got = tbg.gather_aligned(torch.from_numpy(x),
+                             torch.from_numpy(np.array(starts)).long(), align)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

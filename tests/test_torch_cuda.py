@@ -1,5 +1,5 @@
-"""The CUDA kernel on the card: held against its plain PyTorch versions, its
-wrapper's checks, and its launch count on the rollout.
+"""The CUDA kernels on the card (#1-#5, #7): held against their plain PyTorch
+versions, their wrappers' checks, and their launch counts on the rollout.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -17,6 +17,8 @@ from relationalgraphlearning_tpu_torch.envs.mega_crowd import (
     mega_crowd_rollout)
 from relationalgraphlearning_tpu_torch.ops import block_graph as tbg
 from relationalgraphlearning_tpu_torch.ops import fused_block as tfb
+from relationalgraphlearning_tpu_torch.ops import fused_chunk as tfc
+from relationalgraphlearning_tpu_torch.ops import fused_gather as tfg
 from relationalgraphlearning_tpu_torch.ops import sparse as tsp
 
 pytestmark = pytest.mark.cuda
@@ -98,5 +100,143 @@ def test_cuda_rollout_counts_two_launches_a_step(dev):
     (pc, vc), valc, _ = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="block", packed=True, block_B=256,
         block_C=576, rebuild_every=2, device="cpu")
+    torch.testing.assert_close(pos.cpu(), pc, rtol=0, atol=1e-4)
+    torch.testing.assert_close(vals.cpu(), valc, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------ kernel #3, per-edge gather
+def _gather_problem(dev, n=1024, K=16, d=64, dv=64, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    cols = tsp.knn_graph(torch.rand(n, 2, generator=g) * 30.0, K)
+    q, x = torch.randn(n, d, generator=g), torch.randn(n, d, generator=g)
+    v = torch.randn(n, dv, generator=g)
+    mask = torch.rand(n, K, generator=g) > 0.3
+    mask[:4] = False          # fully masked rows: the uniform average
+    return [t.to(dev) for t in (q, x, v, cols, mask)]
+
+
+@pytest.mark.parametrize("dv", [64, 48])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_gather_kernel_matches_plain(dev, masked, dv):
+    q, x, v, cols, mask = _gather_problem(dev, dv=dv)
+    m = mask if masked else None
+    got = tfg.fused_gather_attention(q, x, v, cols, m)
+    want = tfg.fused_gather_attention_plain(q, x, v, cols, m)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    if masked:
+        torch.testing.assert_close(got[:4], v[cols[:4]].mean(1), **TOL)
+
+
+def test_cuda_gather_kernel_duplicates_and_wide_k(dev):
+    q, x, v, cols, _ = _gather_problem(dev, K=40, d=32, dv=32)
+    cols[:, 1] = cols[:, 0]   # a duplicate counts twice
+    got = tfg.fused_gather_attention(q, x, v, cols)
+    torch.testing.assert_close(
+        got, tfg.fused_gather_attention_plain(q, x, v, cols), **TOL)
+
+
+def test_cuda_gather_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, x, v, cols, mask = _gather_problem(dev)
+    with pytest.raises(ValueError, match="outside"):
+        bad = cols.clone()
+        bad[3, 2] = x.shape[0]
+        tfg.fused_gather_attention(q, x, v, bad)
+    with pytest.raises(TypeError):
+        tfg.fused_gather_attention(q, x, v, cols.int())
+    with pytest.raises(TypeError):
+        tfg.fused_gather_attention(q, x, v, cols, mask.float())
+    with pytest.raises(ValueError, match="CUDA"):
+        tfg.fused_gather_attention(q, x.cpu(), v, cols)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfg.fused_gather_attention(q, x, v.t().contiguous().t(), cols)
+
+
+# ----------------------------------------- kernels #4/#7, chunked fetch
+def _chunk_problem(dev, groups=2, d=64, ct=288, n=2048, B=256, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(n, 2, generator=g) * 50.0
+    cols = tsp.knn_graph(pos[tbg.spatial_sort(pos)], 16)
+    starts, tail, mbits, cov = tfc.chunk_window(cols, B, ct=ct,
+                                                groups=groups)
+    mbits[0, 0] &= ~0x1F      # rows 0-4 of block 0: no edge
+    h = torch.randn(n, d, generator=g)
+    h = h / h.norm(dim=1, keepdim=True)
+    return [t.to(dev) for t in (h, starts, tail, mbits)] + [float(cov)]
+
+
+@pytest.mark.parametrize("epilogue", ["none", "l2norm", "relu"])
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("groups,d", [(2, 64), (4, 32)])
+def test_cuda_chunk_kernel_matches_plain(dev, groups, d, stable, epilogue):
+    h, starts, tail, mbits, cov = _chunk_problem(dev, groups, d)
+    assert cov == 1.0
+    got = tfc.chunk_block_attention(h, h, starts, tail, mbits, epilogue,
+                                    stable, groups)
+    want = tfc.chunk_block_attention_plain(h, h, starts, tail, mbits,
+                                           epilogue, stable, groups)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    assert (got[:5] == 0).all()
+
+
+def test_cuda_chunk_kernel_partial_coverage(dev):
+    h, starts, tail, mbits, cov = _chunk_problem(dev, ct=64)
+    assert cov < 1.0
+    torch.testing.assert_close(
+        tfc.chunk_block_attention(h, h, starts, tail, mbits),
+        tfc.chunk_block_attention_plain(h, h, starts, tail, mbits), **TOL)
+
+
+def test_cuda_chunk_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    h, starts, tail, mbits, _ = _chunk_problem(dev)
+    with pytest.raises(TypeError):
+        tfc.chunk_block_attention(h, h, starts.long(), tail, mbits)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros(h.shape[0], 128, device=dev)
+        tfc.chunk_block_attention(wide, wide, starts, tail, mbits)
+    with pytest.raises(ValueError, match="groups"):
+        tfc.chunk_block_attention(h, h, starts, tail, mbits, groups=3)
+
+
+# ----------------------------------------------- kernel #5, the r3 form
+def test_cuda_r3_kernel_matches_plain(dev):
+    qb, x, v, cand, bits = _problem(dev, seed=4)
+    n = x.shape[0]
+    emask = tfb.unpack_emask(bits, qb.shape[1])
+    candc = cand.clamp(0, n - 1)
+    xg, vg = x[candc].contiguous(), v[candc].contiguous()
+    got = tfb.fused_block_attention(qb, xg, vg, emask.float())
+    want = tfb.fused_block_attention_plain(qb, xg, vg, emask.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    assert (got[0, :5] == 0).all()
+
+
+def test_cuda_aligned_route_matches_plain(dev):
+    g = torch.Generator().manual_seed(5)
+    pos = torch.rand(1024, 2, generator=g) * 30.0
+    cols = tsp.knn_graph(pos[tbg.spatial_sort(pos)], 8)
+    starts, cand, cov = tbg.block_window_aligned(cols, 128, 512, 8)
+    bits = tfb.pack_emask(tbg.block_masks(cols, cand))
+    q, x = torch.randn(1024, 32, generator=g), torch.randn(1024, 32,
+                                                           generator=g)
+    q, x, starts, bits = (t.to(dev) for t in (q, x, starts, bits))
+    torch.testing.assert_close(
+        tfb.block_attention_fused_aligned(q, x, x, starts, 8, bits),
+        tfb.block_attention_fused_aligned_plain(q, x, x, starts, 8, bits),
+        **TOL)
+
+
+def test_cuda_pallas_rollout_counts_two_launches_a_step(dev):
+    tfg.reset_launch_counts()
+    (pos, vel), vals, cov = mega_crowd_rollout(
+        n=1024, K=10, steps=4, backend="pallas", rebuild_every=2,
+        device=dev)
+    assert tfg.launch_counts()["fused_gather_attention"] == 8
+    assert torch.isfinite(vals).all()
+    (pc, vc), valc, _ = mega_crowd_rollout(
+        n=1024, K=10, steps=4, backend="pallas", rebuild_every=2,
+        device="cpu")
     torch.testing.assert_close(pos.cpu(), pc, rtol=0, atol=1e-4)
     torch.testing.assert_close(vals.cpu(), valc, rtol=0, atol=1e-4)

@@ -1,6 +1,7 @@
-"""Port parity: the fused block-attention kernels' plain versions against the
-JAX package's Pallas kernels (interpret mode, as its own tests run them on
-the CPU), and ``pack_emask`` bit for bit.
+"""Port parity: the fused block-attention kernels' plain versions (#1, #2, the
+r3 kernel #5 and the aligned route) against the JAX package's Pallas kernels
+(interpret mode, as its own tests run them on the CPU), and ``pack_emask``
+bit for bit.
 
 Tolerance rtol=atol=1e-5: float32 on both sides, sums in different orders.
 Rows with no valid edge must give exactly 0 in both. The CUDA kernel itself
@@ -124,3 +125,53 @@ def test_kernel_checks_reject_cpu_tensors():
         tfb._check(qb, torch.zeros(8, 32), torch.zeros(8, 32),
                    torch.zeros(1, 16, dtype=torch.int64),
                    torch.zeros(1, 1, 16, dtype=torch.int32), "none")
+
+
+def test_r3_plain_matches_pallas_kernel():
+    """Kernel #5: pre-gathered tables, a dense 0/1 f32 mask, the divide
+    before the value product; rows with no edge give 0 in both."""
+    n, d, dv, B = 1024, 32, 48, 128
+    cand, emask, _ = _graph(B=B, C=256, seed=7)
+    q, x, v = _features(n, d, dv, 8, unit=False)
+    nb = cand.shape[0]
+    candc = np.clip(cand, 0, n - 1)
+    qb, xg, vg = q.reshape(nb, B, d), x[candc], v[candc]
+    m = emask.astype(np.float32)
+    want = jpb.fused_block_attention(*map(jnp.asarray, (qb, xg, vg, m)),
+                                     interpret=True)
+    got = tfb.fused_block_attention(*map(torch.from_numpy, (qb, xg, vg, m)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert (got[0, :5] == 0).all() and (np.asarray(want)[0, :5] == 0).all()
+    # a bool mask is the same function
+    torch.testing.assert_close(
+        tfb.fused_block_attention(*map(torch.from_numpy, (qb, xg, vg)),
+                                  torch.from_numpy(emask)), got)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_aligned_route_matches_pallas_aligned(shared):
+    """``block_attention_fused_aligned`` against
+    ``block_attention_pallas_aligned`` on the same aligned window."""
+    n, K, B, window, align = 1024, 8, 128, 512, 8
+    pos = np.random.RandomState(9).uniform(0, 30, (n, 2)).astype(np.float32)
+    pos = pos[np.asarray(jbg.spatial_sort(jnp.asarray(pos)))]
+    cols = jsp.knn_graph(jnp.asarray(pos), K)
+    starts, cand, cov = jbg.block_window_aligned(cols, B, window, align)
+    assert float(cov) == 1.0
+    bits = jpb.pack_emask(jbg.block_masks(cols, cand))
+    q, x, v = _features(n, 32, 48, 10, unit=False)
+    jv = jnp.asarray(x) if shared else jnp.asarray(v)
+    jx = jnp.asarray(x)
+    want = jpb.block_attention_pallas_aligned(
+        jnp.asarray(q), jx, jx if shared else jv, starts, align, bits,
+        interpret=True)
+    tx = torch.from_numpy(x)
+    tv = tx if shared else torch.from_numpy(v)
+    tst = torch.from_numpy(np.array(starts)).long()
+    tbits = torch.from_numpy(np.array(bits).view(np.int32))
+    got = tfb.block_attention_fused_aligned(torch.from_numpy(q), tx, tv, tst,
+                                            align, tbits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the expanded ids the kernel gathers through are the window's cand
+    np.testing.assert_array_equal(tfb.aligned_cand(tst, align).numpy(),
+                                  np.asarray(cand))

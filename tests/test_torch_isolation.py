@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of
 ``relationalgraphlearning_tpu_torch`` (and ``chip_smoke.py``'s imports) pulls
 in neither ``jax`` nor any module of the JAX package, and on the CPU no
-kernel wrapper launches (counts its launch) at all.
+kernel wrapper (#1-#5, #7) launches (counts its launch) at all.
 """
 
 import ast
@@ -12,7 +12,8 @@ from pathlib import Path
 
 import torch
 
-from relationalgraphlearning_tpu_torch.ops import fused_block
+from relationalgraphlearning_tpu_torch.ops import (
+    fused_block, fused_chunk, fused_gather)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "relationalgraphlearning_tpu_torch"
@@ -63,6 +64,8 @@ def test_no_source_names_jax_or_the_jax_package():
 
 def test_cpu_wrappers_count_no_launch():
     fused_block.reset_launch_counts()
+    fused_gather.reset_launch_counts()
+    fused_chunk.reset_launch_counts()
     g = torch.Generator().manual_seed(0)
     nb, B, C, d, n = 2, 64, 48, 32, 128
     q = torch.randn(nb * B, d, generator=g)
@@ -73,6 +76,16 @@ def test_cpu_wrappers_count_no_launch():
     fused_block.block_attention_fused(q, x, x, cand, emask)
     fused_block.block_attention_fused(q, x, torch.randn(n, 48, generator=g),
                                       cand, fused_block.pack_emask(emask))
+    fused_block.fused_block_attention(
+        q.reshape(nb, B, d), x[cand.clamp(max=n - 1)],
+        x[cand.clamp(max=n - 1)], emask)
+    cols = torch.randint(0, n, (nb * B, 8), generator=g)
+    fused_gather.fused_gather_attention(q, x, x, cols)
+    starts, tail, mbits, _ = fused_chunk.chunk_window(
+        cols, B, nch=1, ct=64, thresh=4, chunk=32)
+    fused_chunk.chunk_block_attention(q, q, starts, tail, mbits)
     assert fused_block.launch_counts() == {
         "fused_block_attention_packed_shared": 0,
-        "fused_block_attention_packed": 0}
+        "fused_block_attention_packed": 0, "fused_block_attention": 0}
+    assert fused_gather.launch_counts() == {"fused_gather_attention": 0}
+    assert fused_chunk.launch_counts() == {"chunk_block_attention": 0}

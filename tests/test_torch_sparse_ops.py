@@ -30,6 +30,14 @@ def test_knn_graph_exact(n, k, seed):
     np.testing.assert_array_equal(got, want)
 
 
+def test_knn_graphs_are_contiguous():
+    """The kernels take contiguous ids; the exact kNN once returned a
+    strided view of its sort."""
+    pos = torch.from_numpy(_crowd(256, 12))
+    assert tsp.knn_graph(pos, 8).is_contiguous()
+    assert tsp.knn_graph_grid(pos, 8, 3.0, 16).is_contiguous()
+
+
 def test_knn_graph_valid_mask_exact():
     pos = _crowd(300, 2)
     valid = np.random.RandomState(3).rand(300) > 0.2
@@ -87,4 +95,79 @@ def test_fixed_k_chain_matches(masked):
         tsp.neighbor_softmax(tsp.sddmm_fixed_k(
             torch.from_numpy(q), torch.from_numpy(x), tc, tm), tm),
         torch.from_numpy(v), tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _edge_problem(seed, n=256, k=8, d=16, dv=24):
+    rng = np.random.RandomState(seed)
+    cols = np.asarray(jsp.knn_graph(jnp.asarray(_crowd(n, seed)), k))
+    q, x = (rng.randn(n, d).astype(np.float32) for _ in range(2))
+    v = rng.randn(n, dv).astype(np.float32)
+    return q, x, v, cols, rng
+
+
+def test_fixed_k_to_edges_exact():
+    cols = np.asarray(jsp.knn_graph(jnp.asarray(_crowd(100, 8)), 6))
+    rj, cj = jsp.fixed_k_to_edges(jnp.asarray(cols))
+    rt, ct = tsp.fixed_k_to_edges(torch.from_numpy(np.array(cols)).long())
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_edge_list_chain_matches(masked):
+    """sddmm_edges → segment_softmax → spmm_edges, with rows that have no
+    valid edge (their max is not finite until the mask fills it; they give
+    zero) and rows with no edge at all (segment of length 0)."""
+    q, x, v, cols, rng = _edge_problem(9)
+    n = q.shape[0]
+    rows, flat = (np.asarray(a) for a in
+                  jsp.fixed_k_to_edges(jnp.asarray(cols)))
+    keep = rows >= 3              # rows 0-2 have no edge in the list
+    rows, flat = rows[keep], flat[keep]
+    valid = rng.rand(rows.size) > 0.3 if masked else None
+    if masked:
+        valid[rows == 5] = False  # a row whose every edge is invalid
+    jv = None if valid is None else jnp.asarray(valid)
+    tv = None if valid is None else torch.from_numpy(valid)
+    s_j = jsp.sddmm_edges(jnp.asarray(q), jnp.asarray(x), jnp.asarray(rows),
+                          jnp.asarray(flat), jv)
+    a_j = jsp.segment_softmax(s_j, jnp.asarray(rows), n, jv)
+    o_j = jsp.spmm_edges(a_j, jnp.asarray(v), jnp.asarray(rows),
+                         jnp.asarray(flat), n)
+    tr, tc = torch.from_numpy(rows).long(), torch.from_numpy(flat).long()
+    s_t = tsp.sddmm_edges(torch.from_numpy(q), torch.from_numpy(x), tr, tc,
+                          tv)
+    a_t = tsp.segment_softmax(s_t, tr, n, tv)
+    o_t = tsp.spmm_edges(a_t, torch.from_numpy(v), tr, tc, n)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TOL)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), **TOL)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+    assert (o_t[:3] == 0).all()
+    if masked:
+        assert (o_t[5] == 0).all()
+
+
+def test_edge_list_equals_fixed_k_chain():
+    q, x, v, cols, _ = _edge_problem(10)
+    n = q.shape[0]
+    tq, tx, tv = map(torch.from_numpy, (q, x, v))
+    tc = torch.from_numpy(np.array(cols)).long()
+    rows, flat = tsp.fixed_k_to_edges(tc)
+    out_e = tsp.spmm_edges(tsp.segment_softmax(
+        tsp.sddmm_edges(tq, tx, rows, flat), rows, n), tv, rows, flat, n)
+    out_k = tsp.spmm_fixed_k(tsp.neighbor_softmax(
+        tsp.sddmm_fixed_k(tq, tx, tc)), tv, tc)
+    torch.testing.assert_close(out_e, out_k, **TOL)
+
+
+def test_dense_adjacency_matches():
+    """Duplicate neighbours add up, as the reference's scatter-add does."""
+    q, x, _, cols, rng = _edge_problem(11, n=64, k=5)
+    cols = np.array(cols)
+    cols[:, 1] = cols[:, 0]
+    vals = rng.rand(*cols.shape).astype(np.float32)
+    want = jsp.dense_adjacency(jnp.asarray(vals), jnp.asarray(cols), 64)
+    got = tsp.dense_adjacency(torch.from_numpy(vals),
+                              torch.from_numpy(cols).long(), 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -133,11 +133,30 @@ def test_seeded_init_is_reproducible():
         assert ka == kb and torch.equal(va, vb)
 
 
-def test_pallas_backend_raises_not_implemented():
+@pytest.mark.parametrize("masked", [False, True])
+def test_pallas_backend_matches_flax(masked):
+    """backend="pallas": kernel #3's plain chain here, flax's
+    ``fused_neighbor_attention`` there, weights converted unchanged (the
+    flax tree is the same for every backend). A fully masked row averages
+    its neighbours, as the gather chain does."""
     states, cols = _crowd(9)
-    net = TRGL(TGCN(), backend="pallas")
-    with pytest.raises(NotImplementedError, match="Queue B #3"):
-        net(torch.from_numpy(states), torch.from_numpy(cols).long())
+    mask = None
+    if masked:
+        mask = np.random.RandomState(11).rand(N, K) > 0.25
+        mask[:4] = False
+    jnet, params, tnet = _nets("pallas", states, cols, 12)
+    want = jnet.apply(params, jnp.asarray(states), jnp.asarray(cols),
+                      None if mask is None else jnp.asarray(mask))
+    tm = None if mask is None else torch.from_numpy(mask)
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(states), torch.from_numpy(cols).long(),
+                   tm)
+        gathered = TNet(TGCN(), backend="gather")
+        gathered.load_state_dict(tnet.state_dict())
+        ref = gathered(torch.from_numpy(states),
+                       torch.from_numpy(cols).long(), tm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 def test_block_backend_rejects_mask_beside_emask():

@@ -21,6 +21,14 @@ Phases, each of which exits non-zero on failure:
    relation chain's shapes (n=8192, K=16, B=256, d=64 and 32) and, for #3,
    at the pallas rollout's (n=10,240, d=32) with its own features held
    against float64.
+3c. Kernel #6 (the A/B harness's dense block attention) against its plain
+   version at the harness's shapes (the chain's graph, nb=32, B=256, C=544,
+   d=64) in all eight float32/bfloat16 x divide-before/after x bool/int-mask
+   combinations, with rows with no edge and a coverage < 1 window (C=256):
+   float32 at rtol=atol=1e-5, bfloat16 within one bfloat16 ulp; the four
+   harness instantiations timed beside their bound, plain version and
+   ``scaled_dot_product_attention`` + l2norm, and kernel #1 timed alone at
+   the same shapes.
 4. Slice 1: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
    backend with packed masks, B=256, C=576, rebuild every 8 steps. The
    kernels' launch counts are zeroed just before and read just after; the
@@ -38,7 +46,13 @@ Phases, each of which exits non-zero on failure:
    backend="pallas", rebuild_every=8)``: exactly 64 launches of kernel #3,
    finite results, and the pallas, block+kernel and gather value nets equal
    on one rebuilt graph.
-7. Print the ``kernels`` line, the card line and the last line.
+7. The A/B harness (``tools/ab_kernel.py`` of the port) at its shapes
+   (n=8192, K=16, d=64, B=256, C=544, inner=100), fewer rounds: coverage
+   exactly 1 for the window and the chunked fetch, exactly ``inner``
+   launches of #6 (#4 for ``chunkfetch_f32``) in each variant's checked
+   chain run, and each variant's final h against the plain gather chain
+   (the frozen-table variants against the same chain on the plain version).
+8. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -61,11 +75,13 @@ from relationalgraphlearning_tpu_torch.configs.base import GCNConfig
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
 from relationalgraphlearning_tpu_torch.ops import _build
+from relationalgraphlearning_tpu_torch.ops import ab_block as ab
 from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
+from relationalgraphlearning_tpu_torch.tools import ab_kernel as ak
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -85,7 +101,33 @@ ROUTE_KERNEL = {"gather_kernel": "fused_gather_attention",
                 "chunk": "chunk_block_attention",
                 "chunk_d32": "chunk_block_attention"}
 SOURCES = ("fused_block_attention.cu", "fused_gather_attention.cu",
-           "chunk_block_attention.cu")
+           "chunk_block_attention.cu", "ab_block_attention.cu")
+# Kernel #6's four instantiations in the harness: (dtype, div_after,
+# intmask); phase 3c also checks the other four combinations.
+AB_VARIANTS = {"base_f32": (torch.float32, False, False),
+               "divafter_f32": (torch.float32, True, False),
+               "divafter_intmask_f32": (torch.float32, True, True),
+               "divafter_bf16": (torch.bfloat16, True, False)}
+# One bfloat16 ulp of the value (2^-7 of it; 2^-9 near zero): both sides
+# round e (or e/den) and the output to bfloat16 with round-to-nearest-even,
+# from float32 sums taken in another order.
+BF16_TOL = dict(rtol=2**-7, atol=2**-9)
+# The harness at the reference's shapes; fewer rounds and reps than its
+# defaults (7 x 30) so that the script stays inside its time limit.
+HARNESS = dict(rounds=5, reps=5, B=256, C=544, inner=100)
+# The bfloat16 chain's final h against the float32 gather chain: bfloat16
+# features carry 8 bits, so each application rounds every element by up to
+# half an ulp and the contracting chain holds about one step's rounding.
+# Measured 5.36e-3 at these shapes, with the plain version on the CPU and
+# with the kernel on an NVIDIA H100 alike; the limit is that drift with
+# about half again of room, not an ulp count.
+BF16_CHAIN_TOL = 2**-7
+# The bfloat16 chain on kernel #6 against the same chain on its plain
+# version: each application's float32 sums run in another order, so a
+# rounding of e or of the output may land one ulp apart, and the chain
+# contracts it. Measured 1.95e-3 (one ulp of a value in [0.25, 0.5)) on an
+# NVIDIA H100; the limit is two such ulps.
+BF16_KERNEL_CHAIN_TOL = 2**-8
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
 # the SXM part is the default.
@@ -315,12 +357,13 @@ def kernel_phase(dev, flops, bw, report):
 
 # ----------------------------------------------------------------- phase 3b
 def reset_counts():
-    for mod in (fb, fg, fc):
+    for mod in (fb, fg, fc, ab):
         mod.reset_launch_counts()
 
 
 def counts() -> dict:
-    return {**fb.launch_counts(), **fg.launch_counts(), **fc.launch_counts()}
+    return {**fb.launch_counts(), **fg.launch_counts(), **fc.launch_counts(),
+            **ab.launch_counts()}
 
 
 def timed_row(report, name, replaces, source, fn, plain, lib, nbytes, ops,
@@ -553,6 +596,104 @@ def kernel_phase_2(dev, flops, bw, report):
     return rows
 
 
+# ----------------------------------------------------------------- phase 3c
+def kernel_phase_3c(dev, flops, bw, report):
+    """Kernel #6 against its plain version in all eight combinations, and
+    the harness's four instantiations timed; kernel #1 timed at the same
+    shapes."""
+    n, K, B, C, d = CHAIN["n"], CHAIN["K"], CHAIN["B"], CHAIN["C"], 64
+    cols, cand, cov, mbits, h = ak.graph(n, K, d, B, C, device=dev)
+    if float(cov) != 1.0:
+        raise RuntimeError(f"#6: window coverage {float(cov)} != 1")
+    nb = cand.shape[0]
+    candc = cand.clamp(0, n - 1)
+    no_edge = mbits.clone()
+    no_edge[0, 0, :] &= ~0x1F                      # rows 0-4 of block 0
+    cand_cut, cov_cut = bg.block_window(cols, B, 256)
+    if float(cov_cut) >= 1.0:
+        raise RuntimeError("#6: a window of 256 slots dropped no edge")
+    bits_cut = fb.pack_emask(bg.block_masks(cols, cand_cut))
+    report["notes"].append(f"#6 coverage < 1 case: C=256, coverage "
+                           f"{float(cov_cut)}")
+    g = torch.Generator(device="cpu").manual_seed(6)
+    uq = unit_rows(torch.randn(n, d, generator=g)).to(dev)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        hq, hx = uq.to(dtype).reshape(nb, B, d), h.to(dtype)
+        cases = (("chain window", hq, hx[candc], mbits),
+                 ("no-edge rows", hq, hx[candc], no_edge),
+                 ("coverage < 1 (C=256)", hq,
+                  hx[cand_cut.clamp(0, n - 1)], bits_cut))
+        for div_after in (False, True):
+            for intmask in (False, True):
+                key = (dtype, div_after, intmask)
+                errs[key] = []
+                for label, qb, xg, bits in cases:
+                    got = ab.ab_block_attention(qb, xg, bits, div_after,
+                                                intmask)
+                    want = ab.ab_block_attention_plain(qb, xg, bits,
+                                                       div_after, intmask)
+                    torch.cuda.synchronize()
+                    what = (f"#6 {dtype} div_after={div_after} "
+                            f"intmask={intmask}, {label}")
+                    torch.testing.assert_close(
+                        got.float(), want.float(), **tol,
+                        msg=lambda m: f"{what}: {m}")
+                    if label == "no-edge rows" and not (got[0, :5] == 0).all():
+                        raise RuntimeError(f"{what}: rows with no edge are "
+                                           "not exactly 0")
+                    err = float((got.float() - want.float()).abs().max())
+                    errs[key].append(err)
+                    report["cases"].append(dict(
+                        kernel="#6", case=label, dtype=str(dtype),
+                        div_after=div_after, intmask=intmask,
+                        max_abs_err=err))
+    report["ab_block_max_abs_err"] = {
+        f"{dt}, div_after={da}, intmask={im}": max(e)
+        for (dt, da, im), e in errs.items()}
+
+    # times of the harness's four instantiations at its shapes
+    mask = fb.unpack_emask(mbits, B)
+    edges = int(mask.sum())
+    rows = []
+    for name, (dtype, div_after, intmask) in AB_VARIANTS.items():
+        hd = h.to(dtype)
+        qb, xg = hd.reshape(nb, B, d), hd[candc]
+        es = hd.element_size()
+        rows.append(timed_row(
+            report, f"ab_block_attention[{name}]", "tools/ab_kernel.py:73",
+            "ab_block_attention.cu",
+            lambda: ab.ab_block_attention(qb, xg, mbits, div_after, intmask),
+            lambda: ab.ab_block_attention_plain(qb, xg, mbits, div_after,
+                                                intmask),
+            lambda: rc.normalize(F.scaled_dot_product_attention(
+                qb, xg, xg, attn_mask=mask, scale=1.0)),
+            es * (2 * qb.numel() + xg.numel()) + 4 * mbits.numel(),
+            edges * (2 * d + 2 * d + 2), flops, bw,
+            errs[(dtype, div_after, intmask)],
+            dict(n=n, nb=nb, B=B, C=C, d=d, dtype=str(dtype),
+                 edges=edges)))
+        dense_ops = 4 * nb * B * C * d
+        report["kernel_detail"][rows[-1]["name"]].update(
+            dense_ops=dense_ops, dense_ops_ms=dense_ops / flops * 1e3)
+
+    # kernel #1 alone at the same shapes (the chain's block route)
+    qb = h.reshape(nb, B, d)
+    detail = dict(
+        ms=device_ms(lambda: fb.fused_block_attention_packed_shared(
+            qb, h, cand, mbits, "l2norm", False)),
+        plain_ms=device_ms(lambda: fb.fused_block_attention_packed_shared_plain(
+            qb, h, cand, mbits, "l2norm", False), reps=20),
+        bound=bound(4 * (3 * n * d + mbits.numel()) + 8 * cand.numel(),
+                    edges * (4 * d + 2), flops, bw))
+    report["kernel_detail"]["fused_block_attention_packed_shared@chain"] = \
+        detail
+    print(f"kernel fused_block_attention_packed_shared at the chain's shapes "
+          f"(d=64, C=544, l2norm, unshifted): {detail}", flush=True)
+    return rows
+
+
 # ------------------------------------------------------------------ phase 4
 def knn_overlap(pos, vel, rebuild_every):
     """bench_extra.mega_crowd's staleness diagnostic: the share of each
@@ -762,6 +903,88 @@ def pallas_phase(dev, report, runs=3):
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+def harness_phase(dev, report):
+    """The A/B harness at its shapes. ``run`` zeroes the counts of #6 and
+    #4 before each variant's checked chain run and reads them after; the
+    totals over the whole run are read here too."""
+    inner = HARNESS["inner"]
+    torch.cuda.synchronize()
+    reset_counts()
+    finals = {}
+    records = ak.run(**HARNESS, device=dev, finals=finals)
+    torch.cuda.synchronize()
+    total = counts()
+    chunk, recs = records[0], records[1:]
+    for rec in records:
+        print(json.dumps(rec), flush=True)
+    if chunk["chunk_coverage"] != 1.0:
+        raise RuntimeError(f"harness: chunk coverage {chunk}")
+    # ``run`` last zeroed the counts before chunkfetch_f32's checked run,
+    # the last variant's; the timed rounds came after it
+    timed = HARNESS["rounds"] * HARNESS["reps"]
+    want_total = {k: 0 for k in total}
+    want_total["chunk_block_attention"] = inner
+    for rec in recs:
+        name = rec["variant"]
+        if rec["coverage"] != 1.0:
+            raise RuntimeError(f"harness {name}: coverage {rec['coverage']}")
+        kernel = ("chunk_block_attention" if name == "chunkfetch_f32"
+                  else "ab_block_attention")
+        want = {"ab_block_attention": 0, "chunk_block_attention": 0,
+                kernel: inner}
+        if rec["launches"] != want:
+            raise RuntimeError(f"harness {name}: launches {rec['launches']}"
+                               f", want {want}")
+        want_total[kernel] += inner * timed
+    if total != want_total:
+        raise RuntimeError(f"harness: launches over the run {total}, want "
+                           f"{want_total}")
+
+    # final h: the gather-window variants and the chunked fetch compute the
+    # chain's function at coverage 1; the frozen-table variants are held
+    # against the same chain on the plain version
+    n = CHAIN["n"]
+    cols, cand, _, mbits, h0 = finals["graph"]
+    ref = rc.run(rc.prepare("gather", cols), h0, inner)
+
+    def plain_divafter_int(qb, xg, bits):
+        return ab.ab_block_attention_plain(qb, xg, bits, True, True)
+
+    refs = {"divafter_intmask_f32_NOGATHER": ak.chain(
+                plain_divafter_int, torch.float32, no_gather=True,
+                inner=inner)(h0, cand, mbits),
+            "divafter_intmask_f32_TAILSIM": ak.chain(
+                plain_divafter_int, torch.float32, tail_from=ak.TAIL_FROM,
+                inner=inner)(h0, cand, mbits)}
+    errs = {}
+    for name, h in finals["h"].items():
+        if h.shape != (n, 64) or not bool(torch.isfinite(h).all()):
+            raise RuntimeError(f"harness {name}: final h {tuple(h.shape)}, "
+                               f"finite: {bool(torch.isfinite(h).all())}")
+        tol = BF16_CHAIN_TOL if name == "divafter_bf16" else CHAIN_FINAL_TOL
+        errs[name] = float((h.float() - refs.get(name, ref)).abs().max())
+        if errs[name] > tol:
+            raise RuntimeError(f"harness {name}: final h off its reference "
+                               f"by {errs[name]} > {tol}")
+    bf16_plain = ak.chain(
+        lambda qb, xg, bits: ab.ab_block_attention_plain(qb, xg, bits, True),
+        torch.bfloat16, inner=inner)(h0.bfloat16(), cand, mbits)
+    gap = float((finals["h"]["divafter_bf16"].float()
+                 - bf16_plain.float()).abs().max())
+    errs["divafter_bf16 vs its plain chain"] = gap
+    print(f"harness: final h against the reference chains {errs}", flush=True)
+    if gap > BF16_KERNEL_CHAIN_TOL:
+        raise RuntimeError(f"harness divafter_bf16: final h off the plain "
+                           f"bfloat16 chain by {gap} > {BF16_KERNEL_CHAIN_TOL}")
+    report["harness"] = dict(config=HARNESS, records=records,
+                             final_errs=errs, final_tol=CHAIN_FINAL_TOL,
+                             bf16_final_tol=BF16_CHAIN_TOL,
+                             bf16_kernel_chain_tol=BF16_KERNEL_CHAIN_TOL,
+                             launches=total)
+    return {rec["variant"]: rec["launches"] for rec in recs}
+
+
 # ------------------------------------------------------------- --profile
 def profile_phase(dev, report):
     """Where one 8-step chunk of the slice's time goes: host time of each
@@ -911,9 +1134,11 @@ def main() -> int:
 
     kernels = kernel_phase(dev, flops, bw, report)
     kernels += kernel_phase_2(dev, flops, bw, report)
+    kernels += kernel_phase_3c(dev, flops, bw, report)
     slice_launches = slice_phase(dev, report)
     chain_launches = chain_phase(dev, report)
     pallas_launches = pallas_phase(dev, report)
+    harness_launches = harness_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does)
     path_launches = {
         "fused_block_attention_packed_shared":
@@ -926,7 +1151,10 @@ def main() -> int:
         "chunk_block_attention[groups=4]":
             chain_launches["chunk_d32@d32"]["chunk_block_attention"],
         "fused_block_attention":
-            slice_launches["fused_block_attention"]}
+            slice_launches["fused_block_attention"],
+        **{f"ab_block_attention[{name}]":
+           harness_launches[name]["ab_block_attention"]
+           for name in AB_VARIANTS}}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
     if args.profile:

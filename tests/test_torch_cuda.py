@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (#1-#5, #7): held against their plain PyTorch
-versions, their wrappers' checks, and their launch counts on the rollout.
+"""The CUDA kernels on the card (#1-#7): held against their plain PyTorch
+versions, their wrappers' checks, and their launch counts on the rollout and
+in the A/B harness's chain.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -7,7 +8,10 @@ only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
-Tolerance rtol=atol=1e-5: float32 in both, sums in different orders.
+Tolerance rtol=atol=1e-5: float32 in both, sums in different orders. Kernel
+#6 in bfloat16: within one bfloat16 ulp of the value (rtol=2^-7, atol=2^-9),
+since both sides round to bfloat16 with round-to-nearest-even from float32
+sums taken in another order.
 """
 
 import pytest
@@ -15,14 +19,18 @@ import torch
 
 from relationalgraphlearning_tpu_torch.envs.mega_crowd import (
     mega_crowd_rollout)
+from relationalgraphlearning_tpu_torch.ops import _build as tbuild
+from relationalgraphlearning_tpu_torch.ops import ab_block as tab
 from relationalgraphlearning_tpu_torch.ops import block_graph as tbg
 from relationalgraphlearning_tpu_torch.ops import fused_block as tfb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as tfc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as tfg
 from relationalgraphlearning_tpu_torch.ops import sparse as tsp
+from relationalgraphlearning_tpu_torch.tools import ab_kernel as tak
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2**-7, atol=2**-9)
 
 
 @pytest.fixture
@@ -240,3 +248,96 @@ def test_cuda_pallas_rollout_counts_two_launches_a_step(dev):
         device="cpu")
     torch.testing.assert_close(pos.cpu(), pc, rtol=0, atol=1e-4)
     torch.testing.assert_close(vals.cpu(), valc, rtol=0, atol=1e-4)
+
+
+# ------------------------------------- kernel #6, the A/B harness's form
+def _ab_problem(dev, dtype, C=544, n=2048, B=256, d=64, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(n, 2, generator=g) * 50.0
+    cols = tsp.knn_graph(pos[tbg.spatial_sort(pos)], 16)
+    cand, cov = tbg.block_window(cols, B, C)
+    bits = tfb.pack_emask(tbg.block_masks(cols, cand))
+    bits[0, 0] &= ~0x1F       # rows 0-4 of block 0: no edge
+    q, x = torch.randn(n, d, generator=g), torch.randn(n, d, generator=g)
+    q, x = q / q.norm(dim=1, keepdim=True), x / x.norm(dim=1, keepdim=True)
+    qb, xg = q.reshape(n // B, B, d), x[cand.clamp(0, n - 1)]
+    return [t.to(dev) for t in (qb.to(dtype), xg.to(dtype), bits)] + [
+        float(cov)]
+
+
+def _ab_close(got, want):
+    assert got.dtype == want.dtype
+    tol = TOL if got.dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("intmask", [False, True])
+@pytest.mark.parametrize("div_after", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ab_kernel_matches_plain(dev, dtype, div_after, intmask):
+    qb, xg, bits, cov = _ab_problem(dev, dtype)
+    assert cov == 1.0
+    got = tab.ab_block_attention(qb, xg, bits, div_after, intmask)
+    want = tab.ab_block_attention_plain(qb, xg, bits, div_after, intmask)
+    torch.cuda.synchronize()
+    _ab_close(got, want)
+    assert (got[0, :5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ab_kernel_partial_coverage(dev, dtype):
+    qb, xg, bits, cov = _ab_problem(dev, dtype, C=256)
+    assert cov < 1.0
+    _ab_close(tab.ab_block_attention(qb, xg, bits, True, True),
+              tab.ab_block_attention_plain(qb, xg, bits, True, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ab_kernel_at_the_widest_window_the_wrapper_allows(dev, dtype):
+    # the Python shared-memory formula copies the CUDA layout: at the
+    # largest C it admits the launch must succeed, one slot more it refuses
+    c_max = max(c for c in range(32, 2048)
+                if tab.smem_bytes(c, 64, dtype) <= tbuild.MAX_SMEM_BYTES)
+    qb, xg, bits, _ = _ab_problem(dev, dtype, C=c_max)
+    _ab_close(tab.ab_block_attention(qb, xg, bits, True, True),
+              tab.ab_block_attention_plain(qb, xg, bits, True, True))
+    qb, xg, bits, _ = _ab_problem(dev, dtype, C=c_max + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tab.ab_block_attention(qb, xg, bits)
+
+
+def test_cuda_ab_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    qb, xg, bits, _ = _ab_problem(dev, torch.float32)
+    with pytest.raises(TypeError):
+        tab.ab_block_attention(qb, xg.bfloat16(), bits)
+    with pytest.raises(TypeError):
+        tab.ab_block_attention(qb.double(), xg.double(), bits)
+    with pytest.raises(ValueError, match="1..128"):
+        wide = torch.zeros(*qb.shape[:2], 160, device=dev)
+        tab.ab_block_attention(wide, torch.zeros(*xg.shape[:2], 160,
+                                                 device=dev), bits)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tab.ab_block_attention(qb[:, :48].contiguous(), xg,
+                               bits[:, :1].contiguous())
+    with pytest.raises(ValueError, match="shared memory"):
+        tab.ab_block_attention(torch.zeros(*qb.shape[:2], 128, device=dev),
+                               torch.zeros(*xg.shape[:2], 128, device=dev),
+                               bits)
+
+
+def test_cuda_ab_harness_chain_counts_one_launch_an_iteration(dev):
+    g = torch.Generator().manual_seed(8)
+    pos = torch.rand(2048, 2, generator=g) * 50.0
+    cols = tsp.knn_graph(pos[tbg.spatial_sort(pos)], 16).to(dev)
+    cand, _ = tbg.block_window(cols, 256, 544)
+    bits = tfb.pack_emask(tbg.block_masks(cols, cand))
+    h = torch.randn(2048, 64, generator=g)
+    h = (h / h.norm(dim=1, keepdim=True)).to(dev)
+    tab.reset_launch_counts()
+    f = tak.chain(tak.make_kernel(256, 544, 64, div_after=True), torch.float32,
+                  inner=3)
+    got = f(h, cand, bits)
+    assert tab.launch_counts() == {"ab_block_attention": 3}
+    plain = tak.chain(lambda q, x, m: tab.ab_block_attention_plain(
+        q, x, m, True), torch.float32, inner=3)(h, cand, bits)
+    torch.testing.assert_close(got, plain, **TOL)

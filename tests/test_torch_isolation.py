@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of
 ``relationalgraphlearning_tpu_torch`` (and ``chip_smoke.py``'s imports) pulls
 in neither ``jax`` nor any module of the JAX package, and on the CPU no
-kernel wrapper (#1-#5, #7) launches (counts its launch) at all.
+kernel wrapper (#1-#7) launches (counts its launch) at all.
 """
 
 import ast
@@ -13,7 +13,7 @@ from pathlib import Path
 import torch
 
 from relationalgraphlearning_tpu_torch.ops import (
-    fused_block, fused_chunk, fused_gather)
+    ab_block, fused_block, fused_chunk, fused_gather)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "relationalgraphlearning_tpu_torch"
@@ -25,6 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                               pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import relationalgraphlearning_tpu_torch.tools.ab_kernel
+assert "relationalgraphlearning_tpu_torch.tools.ab_kernel" in names
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -66,6 +68,7 @@ def test_cpu_wrappers_count_no_launch():
     fused_block.reset_launch_counts()
     fused_gather.reset_launch_counts()
     fused_chunk.reset_launch_counts()
+    ab_block.reset_launch_counts()
     g = torch.Generator().manual_seed(0)
     nb, B, C, d, n = 2, 64, 48, 32, 128
     q = torch.randn(nb * B, d, generator=g)
@@ -84,8 +87,14 @@ def test_cpu_wrappers_count_no_launch():
     starts, tail, mbits, _ = fused_chunk.chunk_window(
         cols, B, nch=1, ct=64, thresh=4, chunk=32)
     fused_chunk.chunk_block_attention(q, q, starts, tail, mbits)
+    xg = x[cand.clamp(max=n - 1)]
+    for dtype in (torch.float32, torch.bfloat16):
+        ab_block.ab_block_attention(
+            q.reshape(nb, B, d).to(dtype), xg.to(dtype),
+            fused_block.pack_emask(emask), div_after=True, intmask=True)
     assert fused_block.launch_counts() == {
         "fused_block_attention_packed_shared": 0,
         "fused_block_attention_packed": 0, "fused_block_attention": 0}
     assert fused_gather.launch_counts() == {"fused_gather_attention": 0}
     assert fused_chunk.launch_counts() == {"chunk_block_attention": 0}
+    assert ab_block.launch_counts() == {"ab_block_attention": 0}

@@ -28,7 +28,7 @@ Phases, each of which exits non-zero on failure:
    float32 at rtol=atol=1e-5, bfloat16 within one bfloat16 ulp; the four
    harness instantiations timed beside their bound, plain version and
    ``scaled_dot_product_attention`` + l2norm, and kernel #1 timed alone at
-   the same shapes.
+   the same shapes. #5 and #6 are also timed with a cold L2 (``cold_ms``).
 4. Slice 1: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
    backend with packed masks, B=256, C=576, rebuild every 8 steps. The
    kernels' launch counts are zeroed just before and read just after; the
@@ -172,6 +172,40 @@ def device_ms(fn, reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_FLUSH = []
+
+
+def device_ms_cold(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` with a cold L2: before each call a
+    write over 128 MB (more than the card's 50 MB L2) evicts its inputs, and
+    events around the call alone time it. The mean over ``reps`` calls."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(32 << 20, dtype=torch.float32,
+                                  device="cuda"))
+    flush = _FLUSH[0]
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+
+    def calls():
+        for start, end in pairs:
+            flush.fill_(1.0)
+            start.record()
+            fn()
+            end.record()
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # as in device_ms: the host has queued every call before the first runs
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)
+    calls()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def bound(nbytes: float, ops: float, flops: float, bw: float):
@@ -367,7 +401,9 @@ def counts() -> dict:
 
 
 def timed_row(report, name, replaces, source, fn, plain, lib, nbytes, ops,
-              flops, bw, errs, shapes):
+              flops, bw, errs, shapes, cold=False):
+    """One ``kernels`` row; with ``cold``, also the kernel's time with a
+    cold L2 (``cold_ms``)."""
     ms = device_ms(fn)
     plain_ms = device_ms(plain, reps=20)
     try:
@@ -378,14 +414,18 @@ def timed_row(report, name, replaces, source, fn, plain, lib, nbytes, ops,
     bound_ms, bound_by = bound(nbytes, ops, flops, bw)
     report["kernel_detail"][name] = dict(shapes=shapes, bytes=nbytes,
                                          ops=ops, cases=len(errs))
-    print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-          f"{library_ms} ms, bound {bound_ms:.5f} ms by {bound_by}), "
-          f"max_abs_err {max(errs):.3g} over {len(errs)} cases", flush=True)
-    return dict(name=name, route="cuda",
-                source=f"relationalgraphlearning_tpu_torch/csrc/{source}",
-                replaces=replaces, launches=0, max_abs_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    row = dict(name=name, route="cuda",
+               source=f"relationalgraphlearning_tpu_torch/csrc/{source}",
+               replaces=replaces, launches=0, max_abs_err=max(errs), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms)
+    if cold:
+        row["cold_ms"] = device_ms_cold(fn)
+    cold_ms = f", cold L2 {row['cold_ms']:.4f} ms" if cold else ""
+    print(f"kernel {name}: {ms:.4f} ms{cold_ms} (plain {plain_ms:.4f} ms, "
+          f"library {library_ms} ms, bound {bound_ms:.5f} ms by {bound_by}),"
+          f" max_abs_err {max(errs):.3g} over {len(errs)} cases", flush=True)
+    return row
 
 
 def pallas_inputs(dev):
@@ -591,7 +631,8 @@ def kernel_phase_2(dev, flops, bw, report):
                                                scale=1.0),
         4 * (qb.numel() + xg.numel() + vg.numel() + em_f.numel()
              + n * vg.shape[-1]), edges * (2 * 64 + 2 * 48 + 2), flops, bw,
-        errs["#5"], dict(n=n, B=B, C=C, d=64, dv=48, edges=edges)))
+        errs["#5"], dict(n=n, B=B, C=C, d=64, dv=48, edges=edges),
+        cold=True))
     report["aligned_route_max_abs_err"] = max(errs["aligned"])
     return rows
 
@@ -673,7 +714,7 @@ def kernel_phase_3c(dev, flops, bw, report):
             edges * (2 * d + 2 * d + 2), flops, bw,
             errs[(dtype, div_after, intmask)],
             dict(n=n, nb=nb, B=B, C=C, d=d, dtype=str(dtype),
-                 edges=edges)))
+                 edges=edges), cold=True))
         dense_ops = 4 * nb * B * C * d
         report["kernel_detail"][rows[-1]["name"]].update(
             dense_ops=dense_ops, dense_ops_ms=dense_ops / flops * 1e3)

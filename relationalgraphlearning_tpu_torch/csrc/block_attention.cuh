@@ -1,18 +1,17 @@
 // The windowed block-attention body shared by fused_block_attention.cu
-// (kernels #1, #2 and the r3 kernel #5) and chunk_block_attention.cu
-// (kernels #4 and #7). The kernels differ only in how a CTA learns the table
-// row of each window slot (`ids`) and where the edge mask comes from.
+// (kernels #1 and #2) and chunk_block_attention.cu (kernels #4 and #7). The
+// kernels differ only in how a CTA learns the table row of each window slot
+// (`ids`).
 //
 // A CTA owns 32 query rows (one mask word row) of one block of B rows, over a
-// window of C slots. The calling kernel fills ids[C] (clipped table rows) and,
-// for a bitpacked mask, ms[C] (the CTA's mask words), then calls
-// stage_rows() and attend(). Each warp takes one query row at a time: lanes
-// run over feature columns; a ballot over the row's edge bits enumerates its
-// edges 32 slots at a time, so the work follows the edges, not the window.
-// For each edge the warp forms the dot product with a butterfly sum. Masked
-// slots add exactly 0 to every sum of the reference too, so skipping them
-// changes no value beyond summation order. All arithmetic is f32 on CUDA
-// cores (no TF32).
+// window of C slots. The calling kernel fills ids[C] (clipped table rows) and
+// ms[C] (the CTA's mask words), then calls stage_rows() and attend(). Each
+// warp takes one query row at a time: lanes run over feature columns; a
+// ballot over the row's edge bits enumerates its edges 32 slots at a time,
+// so the work follows the edges, not the window. For each edge the warp
+// forms the dot product with a butterfly sum. Masked slots add exactly 0 to
+// every sum of the reference too, so skipping them changes no value beyond
+// summation order. All arithmetic is f32 on CUDA cores (no TF32).
 #pragma once
 
 #include "common.cuh"
@@ -21,14 +20,9 @@ namespace rgl {
 
 constexpr int kRowsPerCta = 32;  // one mask word row
 
-enum MaskForm {
-  kBits = 0,   // [nb, B/32, C] words, row w*32+j is bit j of word w
-  kDense = 1,  // [nb, B, C] f32 0/1 (the r3 kernel's form)
-};
-
 struct Window {
   float* xs;     // [C, d] staged key rows
-  uint32_t* ms;  // [C] the CTA's mask words (kBits)
+  uint32_t* ms;  // [C] the CTA's mask words: row w*32+j is bit j
   int* ids;      // [C] table row of each slot
   float* sc;     // [kWarps, C] scores of each warp's current row
 };
@@ -59,27 +53,21 @@ __device__ __forceinline__ void stage_rows(const Window& w,
   }
 }
 
-template <int MASK>
-__device__ __forceinline__ bool has_edge(const Window& w,
-                                         const float* __restrict__ m_r,
-                                         int lr, int c, int C) {
-  if (c >= C) return false;
-  if (MASK == kBits) return ((w.ms[c] >> lr) & 1u) != 0u;
-  return __ldg(m_r + c) > 0.f;
+__device__ __forceinline__ bool has_edge(const Window& w, int lr, int c,
+                                         int C) {
+  return c < C && ((w.ms[c] >> lr) & 1u) != 0u;
 }
 
 // For each of the CTA's 32 rows r of block blk:
 //   s[c] = q[blk,r,:] . xs[c,:]                        over the row's edges
 //   e[c] = exp(s[c] - m)      m = max over the edges when STABLE, else 0
-//   out  = sum_c e[c] v[ids[c],:] / max(sum_c e[c], 1e-20)   (DIV_FIRST:
-//          sum_c (e[c] / max(sum e, 1e-20)) v[ids[c],:], the r3 order)
+//   out  = sum_c e[c] v[ids[c],:] / max(sum_c e[c], 1e-20)
 // then the epilogue. Values are the staged keys when SHARED. Rows with no
-// edge give exactly 0. dmask is the [nb, B, C] f32 mask for kDense.
-template <bool SHARED, bool STABLE, int EPI, int MASK, bool DIV_FIRST>
+// edge give exactly 0.
+template <bool SHARED, bool STABLE, int EPI>
 __device__ __forceinline__ void attend(const Window& w,
                                        const float* __restrict__ q,
                                        const float* __restrict__ v,
-                                       const float* __restrict__ dmask,
                                        float* __restrict__ out, int blk,
                                        int wrow, int B, int C, int d, int dv) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -87,7 +75,6 @@ __device__ __forceinline__ void attend(const Window& w,
   for (int lr = warp; lr < kRowsPerCta; lr += kWarps) {
     const size_t row = (size_t)blk * B + wrow * kRowsPerCta + lr;
     const float* q_r = q + row * d;
-    const float* m_r = MASK == kDense ? dmask + row * C : nullptr;
     float qv[kMaxF];
 #pragma unroll
     for (int t = 0; t < kMaxF; ++t) {
@@ -99,7 +86,7 @@ __device__ __forceinline__ void attend(const Window& w,
     float m = -1e30f;
     for (int c0 = 0; c0 < C; c0 += 32) {
       unsigned live = __ballot_sync(
-          0xffffffffu, has_edge<MASK>(w, m_r, lr, c0 + lane, C));
+          0xffffffffu, has_edge(w, lr, c0 + lane, C));
       while (live) {
         const int cc = c0 + __ffs(live) - 1;
         live &= live - 1;
@@ -117,21 +104,6 @@ __device__ __forceinline__ void attend(const Window& w,
     }
     __syncwarp();
 
-    // DIV_FIRST needs the denominator before the value sum
-    float den = 0.f;
-    if (DIV_FIRST) {
-      for (int c0 = 0; c0 < C; c0 += 32) {
-        unsigned live = __ballot_sync(
-            0xffffffffu, has_edge<MASK>(w, m_r, lr, c0 + lane, C));
-        while (live) {
-          const int cc = c0 + __ffs(live) - 1;
-          live &= live - 1;
-          den += STABLE ? expf(sc_w[cc] - m) : expf(sc_w[cc]);
-        }
-      }
-      den = fmaxf(den, 1e-20f);
-    }
-
     // pass 2: e, sum e and sum e*v over the same edges
     float acc[kMaxF];
 #pragma unroll
@@ -139,13 +111,12 @@ __device__ __forceinline__ void attend(const Window& w,
     float sum_e = 0.f;
     for (int c0 = 0; c0 < C; c0 += 32) {
       unsigned live = __ballot_sync(
-          0xffffffffu, has_edge<MASK>(w, m_r, lr, c0 + lane, C));
+          0xffffffffu, has_edge(w, lr, c0 + lane, C));
       while (live) {
         const int cc = c0 + __ffs(live) - 1;
         live &= live - 1;
-        float e = STABLE ? expf(sc_w[cc] - m) : expf(sc_w[cc]);
+        const float e = STABLE ? expf(sc_w[cc] - m) : expf(sc_w[cc]);
         sum_e += e;
-        if (DIV_FIRST) e = e / den;
         const float* vr = SHARED ? w.xs + (size_t)cc * d
                                  : v + (size_t)w.ids[cc] * dv;
 #pragma unroll
@@ -155,11 +126,9 @@ __device__ __forceinline__ void attend(const Window& w,
         }
       }
     }
-    if (!DIV_FIRST) {
-      sum_e = fmaxf(sum_e, 1e-20f);
+    sum_e = fmaxf(sum_e, 1e-20f);
 #pragma unroll
-      for (int t = 0; t < kMaxF; ++t) acc[t] = acc[t] / sum_e;
-    }
+    for (int t = 0; t < kMaxF; ++t) acc[t] = acc[t] / sum_e;
     epilogue<EPI>(acc, lane, dv);
     float* o_r = out + row * dv;
 #pragma unroll

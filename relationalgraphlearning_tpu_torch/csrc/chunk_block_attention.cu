@@ -78,8 +78,7 @@ chunk_block_attention_kernel(const float* __restrict__ q,        // [nb, B, d]
   __syncthreads();
   stage_rows(w, x, ntot, d);
   __syncthreads();
-  attend<true, STABLE, EPI, kBits, false>(w, q, x, nullptr, out, blk, wrow, B,
-                                          ntot, d, d);
+  attend<true, STABLE, EPI>(w, q, x, out, blk, wrow, B, ntot, d, d);
 }
 
 template <bool STABLE, int EPI>

@@ -19,8 +19,9 @@ qb and xg are both float32 or both bfloat16. The unshifted softmax needs
 |q·x| ≤ 1, which unit rows give. Rows with no edge give exactly 0.
 
 The wrapper runs the plain version for CPU tensors and launches the kernel
-(``csrc/ab_block_attention.cu``) for CUDA tensors, or raises.
-``ab_block_attention.launches`` counts its launches.
+(``csrc/ab_block_attention.cu``: the window streams through shared memory in
+tiles, both products on the tensor cores, float32 as 3xTF32) for CUDA
+tensors, or raises. ``ab_block_attention.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from relationalgraphlearning_tpu_torch.ops.fused_block import (
 
 SOURCE = _build.CSRC / "ab_block_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS = 32                  # rows of a CTA, kRows in the CUDA source
 
 _lib = None
 
@@ -82,17 +82,6 @@ def ab_block_attention_plain(qb: Tensor, xg: Tensor, mbits: Tensor,
 
 
 # ------------------------------------------------------------ kernel launch
-def smem_bytes(C: int, d: int, dtype: torch.dtype) -> int:
-    """Shared memory a CTA takes (``smem_bytes<T>`` in
-    ``csrc/ab_block_attention.cu``): the window at an odd word stride, 32
-    query rows and 32 score rows in float32, and the C mask words."""
-    if dtype == torch.float32:
-        window = C * (d | 1) * 4
-    else:
-        window = C * 2 * (((d + 1) // 2) | 1) * 2
-    return (window + 15) // 16 * 16 + 4 * (_ROWS * d + _ROWS * C + C)
-
-
 def ab_block_attention(qb: Tensor, xg: Tensor, mbits: Tensor,
                        div_after: bool = False,
                        intmask: bool = False) -> Tensor:
@@ -114,8 +103,6 @@ def ab_block_attention(qb: Tensor, xg: Tensor, mbits: Tensor,
                          f"do not fit qb {tuple(qb.shape)}")
     if not 1 <= d <= _MAX_FEATURES:
         raise ValueError(f"d={d}: the kernel takes 1..128")
-    _build.check_smem(smem_bytes(C, d, qb.dtype),
-                      f"a window of C={C} at d={d} in {qb.dtype}")
     out = torch.empty_like(qb)
     lib = _library()
     with torch.cuda.device(qb.device):

@@ -8,8 +8,9 @@ divide after the value product, then an optional ``l2norm``/``relu``
 epilogue — the math of ``pallas_block._masked_softmax_agg``. Unlike the
 Pallas kernels they take the node table and ``cand`` and gather the
 candidate rows themselves. The r3 kernel (#5, ``fused_block_attention``)
-takes pre-gathered tables and a dense 0/1 mask, and divides before the value
-product, as ``pallas_block._kernel`` does.
+takes pre-gathered tables and a dense float mask (slots with a value > 0 are
+edges), and divides before the value product, as ``pallas_block._kernel``
+does; it reads each mask row once into bit words and follows the edges.
 
 Packed masks are ``int32`` with the reference's bits: torch on the CPU
 cannot shift ``uint32``, so the port keeps the same 32 bits as a signed word.
@@ -209,8 +210,10 @@ def fused_block_attention_plain(qb: Tensor, xg: Tensor, vg: Tensor,
 def fused_block_attention(qb: Tensor, xg: Tensor, vg: Tensor,
                           emask: Tensor) -> Tensor:
     """Kernel #5, the r3 form: qb [nb, B, d], pre-gathered xg [nb, C, d] and
-    vg [nb, C, dv], emask [nb, B, C] (bool or 0/1; the kernel reads f32) →
-    [nb, B, dv]."""
+    vg [nb, C, dv], emask [nb, B, C] (bool or float; slots with emask > 0
+    are edges; the kernel reads f32) → [nb, B, dv]. The launch itself
+    refuses a window too wide for the card's shared memory (C above about
+    28,000 on an H100), and this raises."""
     if not qb.is_cuda:
         return fused_block_attention_plain(qb, xg, vg, emask)
     if emask.dtype != torch.float32:
@@ -229,7 +232,6 @@ def fused_block_attention(qb: Tensor, xg: Tensor, vg: Tensor,
                          f"{tuple(qb.shape)}")
     if not (1 <= d <= _MAX_FEATURES and 1 <= dv <= _MAX_FEATURES):
         raise ValueError(f"d={d}, dv={dv}: the kernel takes 1..128")
-    _build.check_smem(window_smem_bytes(C, d), f"a window of C={C} at d={d}")
     out = torch.empty((nb, B, dv), dtype=torch.float32, device=qb.device)
     lib = _library()
     with torch.cuda.device(qb.device):

@@ -33,6 +33,8 @@ from relationalgraphlearning_tpu.ops import pallas_block as jpb
 from relationalgraphlearning_tpu.ops import sparse as jsp
 from relationalgraphlearning_tpu_torch.ops import ab_block as tab
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as tfc
+from relationalgraphlearning_tpu_torch.ops.fused_block import (
+    unpack_emask as tfb_unpack)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as tak
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,6 +163,58 @@ def test_plain_matches_reference_kernel_partial_coverage(ref, B, dtype,
                                  h_t[torch.from_numpy(candc)], tbits,
                                  div_after, intmask).float().numpy()
     _assert_matches(got, want, dtype)
+
+
+# ------------------------------------------- the card's 3xTF32 numerics
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: half an ulp added to the magnitude
+    bits, then the low 13 bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as kernel #6 takes it in float32: a = ah + al and b = bh + bl,
+    each part rounded to TF32, and ah bh + ah bl + al bh summed in float32
+    (al bl dropped)."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("intmask", [False, True])
+@pytest.mark.parametrize("div_after", [False, True])
+def test_3xtf32_emulation_holds_the_card_tolerance(div_after, intmask):
+    """Kernel #6's float32 products on the tensor cores, emulated in torch
+    at the harness's B, C and d on unit rows, stay within the card test's
+    rtol=atol=1e-5 of the exact plain version. This checks the design's
+    numerics before the card; the card test holds the kernel itself."""
+    B, C, d = 256, 544, 64
+    cand, cov, _, tbits = _window(B, C)
+    assert cov == 1.0
+    q = torch.from_numpy(_unit(N, d, 5)).reshape(N // B, B, d)
+    xg = torch.from_numpy(_unit(N, d, 6))[torch.from_numpy(
+        np.clip(cand, 0, N - 1))]
+    exact = tab.ab_block_attention_plain(q, xg, tbits, div_after, intmask)
+
+    scores = _mm_3xtf32(q, xg.transpose(1, 2))
+    assert float((scores - q @ xg.transpose(1, 2)).abs().max()) < 1e-6
+    ex = torch.exp(scores)
+    if intmask:
+        shift = torch.arange(32, dtype=torch.int32)
+        m32 = ((tbits[:, :, None, :] << (31 - shift)[None, None, :, None])
+               >> 31).reshape(ex.shape)
+        e = (ex.view(torch.int32) & m32).view(torch.float32)
+    else:
+        e = torch.where(tfb_unpack(tbits, B), ex, 0.0)
+    den = torch.clamp(e.sum(-1, keepdim=True), min=1e-20)
+    out = (_mm_3xtf32(e, xg) / den if div_after
+           else _mm_3xtf32(e / den, xg))
+    out = out / torch.clamp(out.norm(dim=-1, keepdim=True), min=1e-6)
+    torch.testing.assert_close(out, exact, **F32_TOL)
+    # and plain TF32, one product, would not hold it
+    one = _tf32_rna(q) @ _tf32_rna(xg).transpose(1, 2)
+    assert float((one - q @ xg.transpose(1, 2)).abs().max()) > 1e-5
 
 
 # ----------------------------------------------------------- the chain

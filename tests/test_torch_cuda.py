@@ -221,6 +221,69 @@ def test_cuda_r3_kernel_matches_plain(dev):
     assert (got[0, :5] == 0).all()
 
 
+def _r3_problem(dev, C, nb=4, B=64, d=64, dv=48, seed=9):
+    """Unit-normal features and a mask of the values {0, -0.0, 0.5, 1, 2}:
+    the kernel takes slots with emask > 0 as edges, as the reference does."""
+    g = torch.Generator().manual_seed(seed)
+    qb = torch.randn(nb, B, d, generator=g)
+    xg, vg = torch.randn(nb, C, d, generator=g), torch.randn(nb, C, dv,
+                                                           generator=g)
+    values = torch.tensor([0.0, -0.0, 0.5, 1.0, 2.0])
+    pick = torch.randint(0, 5, (nb, B, C), generator=g)
+    pick = torch.where(torch.rand(nb, B, C, generator=g) < 0.9, pick % 2,
+                       pick)                  # about 6 % of slots are edges
+    emask = values[pick]
+    emask[0, :5] = torch.where(torch.arange(C) % 2 == 0, 0.0, -0.0)
+    return [t.to(dev) for t in (qb, xg, vg, emask)]
+
+
+@pytest.mark.parametrize("C", [301, 544, 1088])
+def test_cuda_r3_kernel_non_binary_mask(dev, C):
+    # C=301: neither a multiple of the 4 slots a lane reads at once nor of
+    # a 32-slot mask word; C=1088: twice the chain's window
+    qb, xg, vg, emask = _r3_problem(dev, C)
+    got = tfb.fused_block_attention(qb, xg, vg, emask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, tfb.fused_block_attention_plain(qb, xg, vg, emask), **TOL)
+    assert (got[0, :5] == 0).all()
+    # the same edges as a bool mask give the same function
+    torch.testing.assert_close(
+        tfb.fused_block_attention(qb, xg, vg, emask > 0), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d,dv", [(16, 8), (100, 36), (128, 128)])
+def test_cuda_r3_kernel_other_widths(dev, d, dv):
+    # one or two 16-B loads a lane and edge; rows of 100 and 36 floats are
+    # read by plain loads
+    qb, xg, vg, emask = _r3_problem(dev, 301, d=d, dv=dv)
+    got = tfb.fused_block_attention(qb, xg, vg, emask)
+    torch.testing.assert_close(
+        got, tfb.fused_block_attention_plain(qb, xg, vg, emask), **TOL)
+    assert (got[0, :5] == 0).all()
+
+
+def test_cuda_r3_kernel_window_limit(dev):
+    # the launch is the kernel's one check of shared memory: the widest
+    # window that the staged layout (#1's, which #5 used before) admits at
+    # d=4 runs, and a window too wide for one warp's mask words and scores
+    # is refused
+    d = 4
+    widest_staged = max(c for c in range(1, 1 << 15)
+                        if tfb.window_smem_bytes(c, d) <= tbuild.MAX_SMEM_BYTES)
+    qb, xg, vg, emask = _r3_problem(dev, widest_staged, nb=1, B=32, d=d, dv=d)
+    got = tfb.fused_block_attention(qb, xg, vg, emask)
+    torch.testing.assert_close(
+        got, tfb.fused_block_attention_plain(qb, xg, vg, emask), **TOL)
+    qb, xg, vg, emask = _r3_problem(dev, 1 << 15, nb=1, B=32, d=d, dv=d)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfb.fused_block_attention(qb, xg, vg, emask)
+    # the refusal leaves no error behind for the next launch
+    small = _r3_problem(dev, 301, nb=1, B=32, d=d, dv=d)
+    torch.testing.assert_close(tfb.fused_block_attention(*small),
+                               tfb.fused_block_attention_plain(*small), **TOL)
+
+
 def test_cuda_aligned_route_matches_plain(dev):
     g = torch.Generator().manual_seed(5)
     pos = torch.rand(1024, 2, generator=g) * 30.0
@@ -292,18 +355,34 @@ def test_cuda_ab_kernel_partial_coverage(dev, dtype):
               tab.ab_block_attention_plain(qb, xg, bits, True, True))
 
 
+@pytest.mark.parametrize("div_after", [False, True])
+@pytest.mark.parametrize("C", [40, 1088])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_ab_kernel_at_the_widest_window_the_wrapper_allows(dev, dtype):
-    # the Python shared-memory formula copies the CUDA layout: at the
-    # largest C it admits the launch must succeed, one slot more it refuses
-    c_max = max(c for c in range(32, 2048)
-                if tab.smem_bytes(c, 64, dtype) <= tbuild.MAX_SMEM_BYTES)
-    qb, xg, bits, _ = _ab_problem(dev, dtype, C=c_max)
-    _ab_close(tab.ab_block_attention(qb, xg, bits, True, True),
-              tab.ab_block_attention_plain(qb, xg, bits, True, True))
-    qb, xg, bits, _ = _ab_problem(dev, dtype, C=c_max + 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        tab.ab_block_attention(qb, xg, bits)
+def test_cuda_ab_kernel_window_wider_or_narrower_than_a_tile(dev, dtype, C,
+                                                            div_after):
+    # the window streams through shared memory in tiles of 64 slots: one
+    # ragged tile (C=40), and 17 tiles, wider than any window the card's
+    # shared memory could hold whole in float32 at d=64 (C=1088)
+    qb, xg, bits, _ = _ab_problem(dev, dtype, C=C)
+    for intmask in (False, True):
+        got = tab.ab_block_attention(qb, xg, bits, div_after, intmask)
+        _ab_close(got, tab.ab_block_attention_plain(qb, xg, bits, div_after,
+                                                    intmask))
+        assert (got[0, :5] == 0).all()
+
+
+@pytest.mark.parametrize("d", [40, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ab_kernel_other_widths(dev, dtype, d):
+    # rows padded to 64 or 128 features; at d=100 in bfloat16 a row is not
+    # a whole number of 16-B chunks, so the window is staged by plain loads
+    qb, xg, bits, _ = _ab_problem(dev, dtype, d=d)
+    for div_after in (False, True):
+        for intmask in (False, True):
+            got = tab.ab_block_attention(qb, xg, bits, div_after, intmask)
+            _ab_close(got, tab.ab_block_attention_plain(qb, xg, bits,
+                                                        div_after, intmask))
+            assert (got[0, :5] == 0).all()
 
 
 def test_cuda_ab_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -319,10 +398,6 @@ def test_cuda_ab_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 32"):
         tab.ab_block_attention(qb[:, :48].contiguous(), xg,
                                bits[:, :1].contiguous())
-    with pytest.raises(ValueError, match="shared memory"):
-        tab.ab_block_attention(torch.zeros(*qb.shape[:2], 128, device=dev),
-                               torch.zeros(*xg.shape[:2], 128, device=dev),
-                               bits)
 
 
 def test_cuda_ab_harness_chain_counts_one_launch_an_iteration(dev):

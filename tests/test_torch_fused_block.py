@@ -148,6 +148,46 @@ def test_r3_plain_matches_pallas_kernel():
                                   torch.from_numpy(emask)), got)
 
 
+def _r3_non_binary(C, seed):
+    """Kernel #5's plain version and the reference's on a mask of the values
+    {0, -0.0, 0.5, 1, 2} (slots with emask > 0 are edges), and the plain
+    version on the bool mask of its edges; with the window's coverage."""
+    n, d, dv, B = 1024, 32, 48, 128
+    cand, emask, cov = _graph(B=B, C=C, seed=seed)
+    q, x, v = _features(n, d, dv, seed + 1, unit=False)
+    nb = cand.shape[0]
+    candc = np.clip(cand, 0, n - 1)
+    qb, xg, vg = q.reshape(nb, B, d), x[candc], v[candc]
+    rng = np.random.RandomState(seed + 2)
+    m = np.where(emask, rng.choice([0.5, 1.0, 2.0], emask.shape),
+                 rng.choice([0.0, -0.0], emask.shape)).astype(np.float32)
+    assert (np.signbit(m) & (m == 0)).any() and (m == 0.5).any()
+    want = jpb.fused_block_attention(*map(jnp.asarray, (qb, xg, vg, m)),
+                                     interpret=True)
+    got = tfb.fused_block_attention(*map(torch.from_numpy, (qb, xg, vg, m)))
+    as_bool = tfb.fused_block_attention(*map(torch.from_numpy, (qb, xg, vg)),
+                                        torch.from_numpy(emask))
+    return got, np.asarray(want), as_bool, cov
+
+
+def test_r3_plain_matches_pallas_kernel_non_binary_mask():
+    """Kernel #5 takes the slots with emask > 0 as edges: a mask of the
+    values {0, -0.0, 0.5, 1, 2} gives the reference's function, and the
+    same function as the bool mask of its edges."""
+    got, want, as_bool, _ = _r3_non_binary(256, 11)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert (got[0, :5] == 0).all() and (want[0, :5] == 0).all()
+    torch.testing.assert_close(as_bool, got, rtol=0, atol=0)
+
+
+def test_r3_plain_matches_pallas_kernel_non_binary_mask_partial_coverage():
+    """The same on a window that misses some of the graph's edges."""
+    got, want, as_bool, cov = _r3_non_binary(96, 14)
+    assert cov < 1.0
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    torch.testing.assert_close(as_bool, got, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("shared", [True, False])
 def test_aligned_route_matches_pallas_aligned(shared):
     """``block_attention_fused_aligned`` against

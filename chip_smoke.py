@@ -13,14 +13,17 @@ Phases, each of which exits non-zero on failure:
    slice 1's shapes (the first rebuild's graph of the 10,240-agent crowd:
    nb=40, B=256, C=576, d=32) and on edge cases (rows with no edge,
    coverage < 1, the unshifted softmax on unit rows, all three epilogues,
-   dv != d), at rtol=atol=1e-5; time kernel, plain version and one PyTorch
-   call of the same function (``scaled_dot_product_attention``, a
-   yardstick only).
+   dv != d), at rtol=atol=1e-5; time kernel (warm and with a cold L2),
+   plain version and one PyTorch call of the same function
+   (``scaled_dot_product_attention``, a yardstick only); #1 also with an
+   empty mask (``ms_no_edges``: the launch and each CTA's ids, mask words
+   and edge lists, with no edge to read).
 3b. The same for kernels #3 (per-edge gather), #4/#7 (chunked fetch, groups
    2 and 4), #5 (the r3 dense-mask form) and the aligned route of #1, at the
    relation chain's shapes (n=8192, K=16, B=256, d=64 and 32) and, for #3,
    at the pallas rollout's (n=10,240, d=32) with its own features held
-   against float64.
+   against float64; #4 and #7 also timed with a cold L2 and with an empty
+   mask.
 3c. Kernel #6 (the A/B harness's dense block attention) against its plain
    version at the harness's shapes (the chain's graph, nb=32, B=256, C=544,
    d=64) in all eight float32/bfloat16 x divide-before/after x bool/int-mask
@@ -28,7 +31,8 @@ Phases, each of which exits non-zero on failure:
    float32 at rtol=atol=1e-5, bfloat16 within one bfloat16 ulp; the four
    harness instantiations timed beside their bound, plain version and
    ``scaled_dot_product_attention`` + l2norm, and kernel #1 timed alone at
-   the same shapes. #5 and #6 are also timed with a cold L2 (``cold_ms``).
+   the same shapes. #1, #5 and #6 are also timed with a cold L2
+   (``cold_ms``).
 4. Slice 1: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
    backend with packed masks, B=256, C=576, rebuild every 8 steps. The
    kernels' launch counts are zeroed just before and read just after; the
@@ -338,24 +342,28 @@ def kernel_phase(dev, flops, bw, report):
     edges = int(mask.sum())
     xg = H[cand.clamp(0, n - 1)]
     vg = v32[cand.clamp(0, n - 1)]
+    no_edges = torch.zeros_like(mbits)
     rows = []
-    for kind, name, replaces, dv, fn, plain, lib in (
+    for kind, name, replaces, dv, run, plain, lib in (
         ("shared", "fused_block_attention_packed_shared",
          "relationalgraphlearning_tpu/ops/pallas_block.py:192", d,
-         lambda: fb.fused_block_attention_packed_shared(qb, H, cand, mbits),
+         lambda m: fb.fused_block_attention_packed_shared(qb, H, cand, m),
          lambda: fb.fused_block_attention_packed_shared_plain(
              qb, H, cand, mbits),
          lambda: F.scaled_dot_product_attention(qb, xg, xg, attn_mask=mask,
                                                 scale=1.0)),
         ("separate", "fused_block_attention_packed",
          "relationalgraphlearning_tpu/ops/pallas_block.py:235", 32,
-         lambda: fb.fused_block_attention_packed(qb, H, v32, cand, mbits),
+         lambda m: fb.fused_block_attention_packed(qb, H, v32, cand, m),
          lambda: fb.fused_block_attention_packed_plain(
              qb, H, v32, cand, mbits),
          lambda: F.scaled_dot_product_attention(qb, xg, vg, attn_mask=mask,
                                                 scale=1.0)),
     ):
-        ms = device_ms(fn)
+        ms = device_ms(lambda: run(mbits))
+        cold_ms = device_ms_cold(lambda: run(mbits))
+        # the launch and every CTA's set-up, with no edge to follow
+        ms_no_edges = device_ms(lambda: run(no_edges))
         plain_ms = device_ms(plain, reps=20)
         try:
             library_ms = device_ms(lib)
@@ -376,13 +384,16 @@ def kernel_phase(dev, flops, bw, report):
                    "fused_block_attention.cu",
             replaces=replaces, launches=0,
             max_abs_err=max(errs[kind]), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            cold_ms=cold_ms))
         report["kernel_detail"][name] = dict(
+            ms_no_edges=ms_no_edges,
             shapes=dict(nb=nb, B=B, C=C, d=d, dv=dv, n=n), edges=edges,
             bytes=nbytes, ops=ops, dense_ops=dense_ops,
             dense_bound_ms=bound(nbytes, dense_ops, flops, bw)[0],
             cases=len(errs[kind]))
-        print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        print(f"kernel {name}: {ms:.4f} ms, cold L2 {cold_ms:.4f} ms, no "
+              f"edges {ms_no_edges:.4f} ms (plain {plain_ms:.4f} ms, "
               f"library {library_ms} ms, bound {bound_ms:.4f} ms by "
               f"{bound_by}), max_abs_err {max(errs[kind]):.3g} over "
               f"{len(errs[kind])} cases", flush=True)
@@ -617,7 +628,14 @@ def kernel_phase_2(dev, flops, bw, report):
             4 * (3 * n * d + starts.numel() + mbits.numel())
             + 8 * tail.numel(), edges * (4 * d + 2), flops, bw,
             errs[kernel], dict(n=n, B=B, d=d, ntot=ntot, groups=groups,
-                               edges=edges)))
+                               edges=edges), cold=True))
+        # the launch and every CTA's set-up, with no edge to follow
+        no_edges = torch.zeros_like(mbits)
+        ms_no_edges = device_ms(lambda: fc.chunk_block_attention(
+            h, h, starts, tail, no_edges, "l2norm", False, groups))
+        report["kernel_detail"][rows[-1]["name"]]["ms_no_edges"] = ms_no_edges
+        print(f"  {rows[-1]['name']} with no edges: {ms_no_edges:.4f} ms",
+              flush=True)
 
     # #5 at the chain's window (C=544, d=64)
     edges = int(emask.sum())
@@ -721,9 +739,12 @@ def kernel_phase_3c(dev, flops, bw, report):
 
     # kernel #1 alone at the same shapes (the chain's block route)
     qb = h.reshape(nb, B, d)
+
+    def block_chain():
+        return fb.fused_block_attention_packed_shared(qb, h, cand, mbits,
+                                                      "l2norm", False)
     detail = dict(
-        ms=device_ms(lambda: fb.fused_block_attention_packed_shared(
-            qb, h, cand, mbits, "l2norm", False)),
+        ms=device_ms(block_chain), cold_ms=device_ms_cold(block_chain),
         plain_ms=device_ms(lambda: fb.fused_block_attention_packed_shared_plain(
             qb, h, cand, mbits, "l2norm", False), reps=20),
         bound=bound(4 * (3 * n * d + mbits.numel()) + 8 * cand.numel(),

@@ -1,143 +1,311 @@
-// The windowed block-attention body shared by fused_block_attention.cu
-// (kernels #1 and #2) and chunk_block_attention.cu (kernels #4 and #7). The
-// kernels differ only in how a CTA learns the table row of each window slot
-// (`ids`).
+// The edge-following body of the windowed block kernels:
+// fused_block_attention.cu (#1, #2) and chunk_block_attention.cu (#4, #7),
+// which differ only in how a CTA learns the table row of each window slot
+// (`id_of`). The 16-B loads (load4, aligned16) serve the r3 kernel (#5 in
+// fused_block_attention.cu) too.
 //
-// A CTA owns 32 query rows (one mask word row) of one block of B rows, over a
-// window of C slots. The calling kernel fills ids[C] (clipped table rows) and
-// ms[C] (the CTA's mask words), then calls stage_rows() and attend(). Each
-// warp takes one query row at a time: lanes run over feature columns; a
-// ballot over the row's edge bits enumerates its edges 32 slots at a time,
-// so the work follows the edges, not the window. For each edge the warp
-// forms the dot product with a butterfly sum. Masked slots add exactly 0 to
-// every sum of the reference too, so skipping them changes no value beyond
-// summation order. All arithmetic is f32 on CUDA cores (no TF32).
+// A CTA owns kRowsPerCta = 16 query rows of one block of B rows (half of one
+// mask word row) over the block's window of C slots. A row is a group of L
+// lanes (8 at row widths up to 32 floats, else 16); lane l holds F4 float4s
+// of the row, features 4*l + 4*L*u .. +3 for u < F4. The CTA
+//   1. loads its rows of q into registers, in flight while it
+//   2. writes the clipped table row of every slot into ids[C] (sentinel ids
+//      read row n-1; their mask bits are never set), and
+//   3. reads its mask word row mbits[b, w, :] once, 32 words a warp load,
+//      and ballots its 16 bits of those words into each row's own words
+//      (nw = ceil(C/32); bit j of word i is slot 32 i + j);
+//   4. each row turns its words into its edge list, its slots in ascending
+//      order (a word a lane, a scan of the bit counts over the row's lanes).
+// Then each row reads its edges' key (and value) rows straight from the
+// table, kRowLoads float4 loads a lane in flight (8 edges at F4=1, 4 at
+// F4=2). Nothing of the window is staged: the whole table (1.3-2.1 MB at
+// the main paths' shapes) stays in the card's 50 MB L2, and a row's 16
+// edges touch 16 of its C slots. The list is built once, so that every pass
+// reads its slots in step across the rows of a warp.
+//   STABLE: a first pass takes the row's max score m; the second forms each
+//           score again, bit for bit, and e = exp(s - m), sum e and sum e*v
+//           (two passes with the true max, no rescaling; recomputing the
+//           score keeps a CTA's shared memory at the lists, 22 KB at C=576).
+//   else:   one pass, e = exp(s) unshifted as each score lands.
+// out = (sum e*v) / max(sum e, 1e-20), then the epilogue over the row's
+// lanes. Masked slots are never visited, so they add exactly 0 to every sum,
+// as the reference's masked exp does; rows with no edge give exactly 0. All
+// arithmetic is f32 on the CUDA cores (no TF32).
 #pragma once
 
 #include "common.cuh"
 
 namespace rgl {
 
-constexpr int kRowsPerCta = 32;  // one mask word row
+constexpr int kRowsPerCta = 16;  // query rows of a CTA: half a mask word row
+constexpr int kRowLoads = 8;     // float4 loads of edge rows in flight a lane
+constexpr int kWordLoads = 4;    // 32-word mask loads in flight a warp
 
-struct Window {
-  float* xs;     // [C, d] staged key rows
-  uint32_t* ms;  // [C] the CTA's mask words: row w*32+j is bit j
-  int* ids;      // [C] table row of each slot
-  float* sc;     // [kWarps, C] scores of each warp's current row
-};
-
-// Dynamic shared memory one CTA needs, in bytes.
-inline size_t window_smem_bytes(int C, int d) {
-  return (size_t)C * d * sizeof(float) + (size_t)C * 2 * sizeof(int32_t) +
-         (size_t)kWarps * C * sizeof(float);
+// r[f..f+3], zero past n: one 16-B load where the row allows it.
+__device__ __forceinline__ float4 load4(const float* r, int f, int n,
+                                        bool vec) {
+  if (vec)
+    return f < n ? __ldg(reinterpret_cast<const float4*>(r + f))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(f < n ? __ldg(r + f) : 0.f,
+                     f + 1 < n ? __ldg(r + f + 1) : 0.f,
+                     f + 2 < n ? __ldg(r + f + 2) : 0.f,
+                     f + 3 < n ? __ldg(r + f + 3) : 0.f);
 }
 
-__device__ __forceinline__ Window carve_window(float* smem, int C, int d) {
-  Window w;
-  w.xs = smem;
-  w.ms = reinterpret_cast<uint32_t*>(w.xs + (size_t)C * d);
-  w.ids = reinterpret_cast<int*>(w.ms + C);
-  w.sc = reinterpret_cast<float*>(w.ids + C);
-  return w;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
 }
 
-// Copy the C rows named by ids from table x [*, d] into xs. Neighbouring
-// threads read neighbouring floats of a row.
-__device__ __forceinline__ void stage_rows(const Window& w,
-                                           const float* __restrict__ x,
-                                           int C, int d) {
-  for (int i = threadIdx.x; i < C * d; i += blockDim.x) {
-    const int c = i / d, k = i - c * d;
-    w.xs[i] = __ldg(x + (size_t)w.ids[c] * d + k);
+__device__ __forceinline__ float dot4(float4 a, float4 b, float p) {
+  p = fmaf(a.x, b.x, p);
+  p = fmaf(a.y, b.y, p);
+  p = fmaf(a.z, b.z, p);
+  return fmaf(a.w, b.w, p);
+}
+
+__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z);
+  y.w = fmaf(a, x.w, y.w);
+}
+
+// Entries of a row's edge list in shared memory: C slots, padded to an odd
+// number of 4-byte words, so that the rows of a warp read distinct banks.
+inline __host__ __device__ int list_stride(int C) {
+  return (C + 3) / 4 * 4 + 2;
+}
+
+// Dynamic shared memory of a CTA, in bytes: the slots' table rows, its
+// rows' mask words and each row's edge list (a row may have every slot as
+// an edge). ops/fused_block.py::cta_smem_bytes is the same reckoning.
+inline size_t cta_smem_bytes(int C) {
+  const size_t nw = ((size_t)C + 31) / 32;
+  return sizeof(int) * (size_t)C + sizeof(uint32_t) * kRowsPerCta * nw +
+         sizeof(uint16_t) * kRowsPerCta * (size_t)list_stride(C);
+}
+
+// CTAs an SM that a kernel of L lanes a row, F4 float4s a lane, is compiled
+// for: at 16 lanes and one float4, 4 (64 registers a thread), so that the
+// chain's 8,192 rows are resident at once (nvcc spills 8-64 B a thread
+// there); at 8 lanes the registers do not bound it, and at two float4s the
+// same cap would spill up to 440 B a thread.
+constexpr int min_ctas(int L, int F4) { return L == 16 && F4 == 1 ? 4 : 1; }
+
+// The row shape for rows of up to w floats (w = max(d, dv) <= 128): L = 8
+// lanes at w <= 32, else 16, with F4 = 1 float4 a lane up to 64 floats and
+// 2 up to 128. Returns false for a width outside 1..128.
+inline bool row_shape(int w, int* L, int* F4) {
+  if (w < 1 || w > 128) return false;
+  *L = w <= 32 ? 8 : 16;
+  *F4 = (w + 4 * *L - 1) / (4 * *L);
+  return true;
+}
+
+// The rows of table t [*, w] at the slots cc (-1: none, zeros), F4 float4s
+// a lane.
+template <int L, int F4, int N>
+__device__ __forceinline__ void edge_rows(const int (&cc)[N], const int* ids,
+                                          const float* __restrict__ t, int w,
+                                          bool vec, int l,
+                                          float4 (&r)[N][F4]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float* row = t + (size_t)(cc[k] < 0 ? 0 : ids[cc[k]]) * w;
+#pragma unroll
+    for (int u = 0; u < F4; ++u)
+      r[k][u] = cc[k] < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                          : load4(row, 4 * l + 4 * L * u, w, vec);
   }
 }
 
-__device__ __forceinline__ bool has_edge(const Window& w, int lr, int c,
-                                         int C) {
-  return c < C && ((w.ms[c] >> lr) & 1u) != 0u;
+// The key rows of a batch of edges and their scores against q, summed over
+// the row's L lanes (a butterfly: every lane ends with the same sum, and
+// every lane of the warp must take part).
+template <int L, int F4, int N>
+__device__ __forceinline__ void edge_scores(const int (&cc)[N], const int* ids,
+                                            const float* __restrict__ x, int d,
+                                            bool vx, int l,
+                                            const float4 (&qv)[F4],
+                                            float4 (&xr)[N][F4],
+                                            float (&p)[N]) {
+  edge_rows<L, F4, N>(cc, ids, x, d, vx, l, xr);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    p[k] = 0.f;
+#pragma unroll
+    for (int u = 0; u < F4; ++u) p[k] = dot4(qv[u], xr[k][u], p[k]);
+  }
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] += __shfl_xor_sync(0xffffffffu, p[k], o);
 }
 
-// For each of the CTA's 32 rows r of block blk:
-//   s[c] = q[blk,r,:] . xs[c,:]                        over the row's edges
-//   e[c] = exp(s[c] - m)      m = max over the edges when STABLE, else 0
-//   out  = sum_c e[c] v[ids[c],:] / max(sum_c e[c], 1e-20)
-// then the epilogue. Values are the staged keys when SHARED. Rows with no
-// edge give exactly 0.
-template <bool SHARED, bool STABLE, int EPI>
-__device__ __forceinline__ void attend(const Window& w,
-                                       const float* __restrict__ q,
-                                       const float* __restrict__ v,
-                                       float* __restrict__ out, int blk,
-                                       int wrow, int B, int C, int d, int dv) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sc_w = w.sc + (size_t)warp * C;
-  for (int lr = warp; lr < kRowsPerCta; lr += kWarps) {
-    const size_t row = (size_t)blk * B + wrow * kRowsPerCta + lr;
-    const float* q_r = q + row * d;
-    float qv[kMaxF];
-#pragma unroll
-    for (int t = 0; t < kMaxF; ++t) {
-      const int f = lane + 32 * t;
-      qv[t] = f < d ? q_r[f] : 0.f;
-    }
+// The CTA's 16 rows of block blockIdx.x, rows blockIdx.y * 16 .. + 15, over
+// C slots whose table rows id_of(c) gives (before clipping to [0, n-1]).
+// Values are x when SHARED, else v [n, dv]. Launched with kRowsPerCta * L
+// threads and cta_smem_bytes(C) of dynamic shared memory.
+template <int L, int F4, bool SHARED, bool STABLE, int EPI, class IdOf>
+__device__ __forceinline__ void block_rows(
+    IdOf id_of, const float* __restrict__ q, const float* __restrict__ x,
+    const float* __restrict__ v, const int32_t* __restrict__ mbits,
+    float* __restrict__ out, int B, int C, int d, int dv, int n) {
+  constexpr int kThreads = kRowsPerCta * L, kWarpsHere = kThreads / 32;
+  constexpr int kBatch = kRowLoads / F4;  // edges a row has in flight
+  extern __shared__ int cta_smem[];
+  const int tid = threadIdx.x, g = tid / L, l = tid % L;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int blk = blockIdx.x, r0 = blockIdx.y * kRowsPerCta;
+  const size_t row = (size_t)blk * B + r0 + g;
+  const int nw = (C + 31) / 32, ls = list_stride(C);
+  int* ids = cta_smem;                                           // [C]
+  uint32_t* words = reinterpret_cast<uint32_t*>(ids + C);        // [16, nw]
+  uint16_t* lst = reinterpret_cast<uint16_t*>(words + kRowsPerCta * nw) +
+                  (size_t)g * ls;                                // [C]
+  const bool vx = d % 4 == 0 && aligned16(x) && aligned16(q);
+  const bool vv = dv % 4 == 0 && aligned16(v);
+  const bool vo = dv % 4 == 0 && aligned16(out);
 
-    // pass 1: scores of the row's edges, and their max
-    float m = -1e30f;
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      unsigned live = __ballot_sync(
-          0xffffffffu, has_edge(w, lr, c0 + lane, C));
-      while (live) {
-        const int cc = c0 + __ffs(live) - 1;
-        live &= live - 1;
-        const float* xr = w.xs + (size_t)cc * d;
-        float p = 0.f;
+  // 1. the row's query
+  float4 qv[F4];
 #pragma unroll
-        for (int t = 0; t < kMaxF; ++t) {
-          const int f = lane + 32 * t;
-          if (f < d) p = fmaf(qv[t], xr[f], p);
-        }
-        p = warp_sum(p);
-        if (lane == 0) sc_w[cc] = p;
-        m = fmaxf(m, p);
-      }
-    }
-    __syncwarp();
+  for (int u = 0; u < F4; ++u)
+    qv[u] = load4(q + row * d, 4 * l + 4 * L * u, d, vx);
 
-    // pass 2: e, sum e and sum e*v over the same edges
-    float acc[kMaxF];
-#pragma unroll
-    for (int t = 0; t < kMaxF; ++t) acc[t] = 0.f;
-    float sum_e = 0.f;
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      unsigned live = __ballot_sync(
-          0xffffffffu, has_edge(w, lr, c0 + lane, C));
-      while (live) {
-        const int cc = c0 + __ffs(live) - 1;
-        live &= live - 1;
-        const float e = STABLE ? expf(sc_w[cc] - m) : expf(sc_w[cc]);
-        sum_e += e;
-        const float* vr = SHARED ? w.xs + (size_t)cc * d
-                                 : v + (size_t)w.ids[cc] * dv;
-#pragma unroll
-        for (int t = 0; t < kMaxF; ++t) {
-          const int f = lane + 32 * t;
-          if (f < dv) acc[t] = fmaf(e, SHARED ? vr[f] : __ldg(vr + f), acc[t]);
-        }
-      }
-    }
-    sum_e = fmaxf(sum_e, 1e-20f);
-#pragma unroll
-    for (int t = 0; t < kMaxF; ++t) acc[t] = acc[t] / sum_e;
-    epilogue<EPI>(acc, lane, dv);
-    float* o_r = out + row * dv;
-#pragma unroll
-    for (int t = 0; t < kMaxF; ++t) {
-      const int f = lane + 32 * t;
-      if (f < dv) o_r[f] = acc[t];
-    }
-    __syncwarp();  // sc_w is rewritten by the warp's next row
+  // 2. each slot's table row, clipped
+#pragma unroll 4
+  for (int c = tid; c < C; c += kThreads) {
+    const int64_t id = id_of(c);
+    ids[c] = (int)(id < 0 ? 0 : (id > n - 1 ? n - 1 : id));
   }
+
+  // 3. the CTA's mask word row, read once; ballot r of a 32-word load is
+  //    row r's word of those 32 slots
+  const int32_t* m_r = mbits + ((size_t)blk * (B / 32) + r0 / 32) * C;
+  const int bit0 = r0 % 32;
+  for (int w0 = warp; w0 < nw; w0 += kWordLoads * kWarpsHere) {
+    uint32_t mw[kWordLoads];
+#pragma unroll
+    for (int k = 0; k < kWordLoads; ++k) {
+      const int c = (w0 + k * kWarpsHere) * 32 + lane;
+      mw[k] = c < C ? (uint32_t)__ldg(m_r + c) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kWordLoads; ++k) {
+      const int wi = w0 + k * kWarpsHere;  // warp-uniform
+      if (wi >= nw) break;
+      uint32_t mine = 0u;
+#pragma unroll
+      for (int r = 0; r < kRowsPerCta; ++r) {
+        const uint32_t b =
+            __ballot_sync(0xffffffffu, (mw[k] >> (bit0 + r)) & 1u);
+        if (lane == r) mine = b;
+      }
+      if (lane < kRowsPerCta) words[lane * nw + wi] = mine;
+    }
+  }
+  __syncthreads();
+
+  // 4. the row's edge list, its slots in ascending order: each lane of the
+  //    row takes a word, and a scan of their bit counts places its slots
+  const uint32_t* my_words = words + g * nw;
+  int ne = 0;
+  for (int w0 = 0; w0 < nw; w0 += L) {  // uniform across the warp
+    const int wi = w0 + l;
+    uint32_t w = wi < nw ? my_words[wi] : 0u;
+    const int cnt = __popc(w);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o, L);
+      if (l >= o) incl += t;
+    }
+    for (int pos = ne + incl - cnt; w != 0u; w &= w - 1)
+      lst[pos++] = (uint16_t)(wi * 32 + __ffs(w) - 1);
+    ne += __shfl_sync(0xffffffffu, incl, L - 1, L);
+  }
+  __syncwarp();
+
+  // 5. the edges, kBatch at a time; the warp loops until all of its rows are
+  //    done. STABLE: a first pass takes the row's max score m, and the
+  //    second forms each score again as the first did, bit for bit.
+  float m = 0.f;
+  if (STABLE) {
+    m = -1e30f;
+    for (int k0 = 0; __any_sync(0xffffffffu, k0 < ne); k0 += kBatch) {
+      int cc[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) cc[k] = k0 + k < ne ? lst[k0 + k] : -1;
+      float4 xr[kBatch][F4];
+      float p[kBatch];
+      edge_scores<L, F4, kBatch>(cc, ids, x, d, vx, l, qv, xr, p);
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (cc[k] >= 0) m = fmaxf(m, p[k]);
+    }
+  }
+  float4 acc[F4];
+#pragma unroll
+  for (int u = 0; u < F4; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float den = 0.f;
+  for (int k0 = 0; __any_sync(0xffffffffu, k0 < ne); k0 += kBatch) {
+    int cc[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) cc[k] = k0 + k < ne ? lst[k0 + k] : -1;
+    float4 xr[kBatch][F4], vr[kBatch][F4];
+    float p[kBatch];
+    edge_scores<L, F4, kBatch>(cc, ids, x, d, vx, l, qv, xr, p);
+    if (!SHARED) edge_rows<L, F4, kBatch>(cc, ids, v, dv, vv, l, vr);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (cc[k] < 0) continue;
+      const float e = STABLE ? expf(p[k] - m) : expf(p[k]);
+      den += e;
+#pragma unroll
+      for (int u = 0; u < F4; ++u)
+        axpy4(e, SHARED ? xr[k][u] : vr[k][u], acc[u]);
+    }
+  }
+
+  den = fmaxf(den, 1e-20f);
+#pragma unroll
+  for (int u = 0; u < F4; ++u) {
+    acc[u].x = acc[u].x / den;
+    acc[u].y = acc[u].y / den;
+    acc[u].z = acc[u].z / den;
+    acc[u].w = acc[u].w / den;
+  }
+  row_epilogue<EPI, L, F4>(acc);
+  float* o_r = out + row * dv;
+#pragma unroll
+  for (int u = 0; u < F4; ++u) {
+    const int f = 4 * l + 4 * L * u;
+    if (vo) {
+      if (f < dv) *reinterpret_cast<float4*>(o_r + f) = acc[u];
+    } else {
+      if (f < dv) o_r[f] = acc[u].x;
+      if (f + 1 < dv) o_r[f + 1] = acc[u].y;
+      if (f + 2 < dv) o_r[f + 2] = acc[u].z;
+      if (f + 3 < dv) o_r[f + 3] = acc[u].w;
+    }
+  }
+}
+
+// Launch `kern` (a kernel calling block_rows with L lanes a row) over nb
+// blocks of B rows on `stream`; returns the CUDA error code (0 = launched).
+// Above the card's shared memory, cudaFuncSetAttribute refuses and that
+// error is returned.
+template <typename Kernel, typename... Args>
+int launch_rows(Kernel kern, int L, int nb, int B, size_t smem,
+                cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nb, B / kRowsPerCta);
+  kern<<<grid, kRowsPerCta * L, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rgl

@@ -19,21 +19,45 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The epilogue of a finished output row held as kMaxF features a lane.
-template <int EPI>
-__device__ __forceinline__ void epilogue(float (&acc)[kMaxF], int lane,
-                                         int dv) {
+// warp_sum over a group of L lanes (aligned, L a power of two <= 32): each
+// group gets its own sum. Every lane of the warp must take part.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The epilogue of a finished output row held by a group of L lanes, F4
+// float4s a lane; features past the row's width hold exactly 0, so they add
+// nothing to the l2norm's sum of squares.
+template <int EPI, int L, int F4>
+__device__ __forceinline__ void row_epilogue(float4 (&acc)[F4]) {
   if (EPI == kL2Norm) {
     float ss = 0.f;
 #pragma unroll
-    for (int t = 0; t < kMaxF; ++t)
-      if (lane + 32 * t < dv) ss = fmaf(acc[t], acc[t], ss);
-    const float nrm = fmaxf(sqrtf(warp_sum(ss)), 1e-6f);
+    for (int u = 0; u < F4; ++u) {
+      ss = fmaf(acc[u].x, acc[u].x, ss);
+      ss = fmaf(acc[u].y, acc[u].y, ss);
+      ss = fmaf(acc[u].z, acc[u].z, ss);
+      ss = fmaf(acc[u].w, acc[u].w, ss);
+    }
+    const float nrm = fmaxf(sqrtf(group_sum<L>(ss)), 1e-6f);
 #pragma unroll
-    for (int t = 0; t < kMaxF; ++t) acc[t] = acc[t] / nrm;
+    for (int u = 0; u < F4; ++u) {
+      acc[u].x = acc[u].x / nrm;
+      acc[u].y = acc[u].y / nrm;
+      acc[u].z = acc[u].z / nrm;
+      acc[u].w = acc[u].w / nrm;
+    }
   } else if (EPI == kRelu) {
 #pragma unroll
-    for (int t = 0; t < kMaxF; ++t) acc[t] = fmaxf(acc[t], 0.f);
+    for (int u = 0; u < F4; ++u) {
+      acc[u].x = fmaxf(acc[u].x, 0.f);
+      acc[u].y = fmaxf(acc[u].y, 0.f);
+      acc[u].z = fmaxf(acc[u].z, 0.f);
+      acc[u].w = fmaxf(acc[u].w, 0.f);
+    }
   }
 }
 

@@ -20,20 +20,21 @@
 // are clipped to n-1, as pallas_block.py:298 does before its gather; their
 // mask bits are never set. Keys and values are x when SHARED (the
 // SparseRGL production case, values == keys == H); else v is a second table.
-// Design: grid (nb, B/32), 256 threads = 8 warps. A CTA owns 32 rows of one
-// block, i.e. one mask word row. It gathers its block's C candidate key rows
-// through cand into dynamic shared memory (C*d*4 B: 73,728 B at C=576,
-// d=32, above the 48 KB default, hence the attribute), plus the C mask
-// words and the C clipped ids; then block_attention.cuh's attend() runs the
-// rows, visiting set mask bits only.
+// Design (block_attention.cuh): grid (nb, B/16), a CTA of 16 rows of one
+// block, a row a group of 8 lanes (d, dv <= 32) or 16. The CTA writes the
+// C clipped ids and its rows' mask words into shared memory once, and each
+// row its edge list; then each row reads its edges' x (and v) rows straight
+// from L2, 8 float4 loads a lane in flight. Nothing of the window is
+// staged: a row's 16 edges touch 16 of its C slots.
 // What bounds them on an H100 SXM: at the slice shapes (nb=40, B=256,
 // C=576, d=32, K=16 edges a row) the dense formulation is 4*B*C*d*nb = 0.755
 // GFLOP, but the kernel visits only set mask bits: 4*E*d flops for E = n*K =
 // 163,840 edges (21 MFLOP, 0.3 us), against about 4.8 MB of unique bytes
 // (q 1.31 MB, table 1.31 MB, cand 92 KB, mbits 737 KB, out 1.31 MB), 1.4 us
-// at 3.35 TB/s: bytes bound them. The staging re-reads each block's table
-// once per CTA (B/32 = 8 times, about 24 MB from L2), which is what a faster
-// design would cut first.
+// at 3.35 TB/s: bytes bound them. What a row waits for is a chain of L2
+// reads (cand and the mask words, then 2 batches of 8 edges a pass), so the
+// design keeps every row of the problem in flight at once: 22 KB of shared
+// memory a CTA at C=576, and the slice's 640 CTAs (4.85 an SM) all resident.
 //
 // The r3 kernel (#5) takes pre-gathered tables xg [nb, C, d], vg [nb, C, dv]
 // and a dense f32 mask em [nb, B, C] whose slots with em > 0 are edges
@@ -65,8 +66,8 @@ using namespace rgl;
 
 namespace {
 
-template <bool SHARED, bool STABLE, int EPI>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int L, int F4, bool SHARED, bool STABLE, int EPI>
+__global__ void __launch_bounds__(kRowsPerCta * L, min_ctas(L, F4))
 fused_block_attention_kernel(const float* __restrict__ q,      // [nb, B, d]
                              const float* __restrict__ x,      // [n, d]
                              const float* __restrict__ v,      // [n, dv]
@@ -74,21 +75,9 @@ fused_block_attention_kernel(const float* __restrict__ q,      // [nb, B, d]
                              const int32_t* __restrict__ mbits,// [nb, B/32, C]
                              float* __restrict__ out,          // [nb, B, dv]
                              int B, int C, int d, int dv, int n) {
-  extern __shared__ float smem[];
-  const Window w = carve_window(smem, C, d);
-  const int blk = blockIdx.x, wrow = blockIdx.y;
-  const int64_t* cand_b = cand + (size_t)blk * C;
-  const int32_t* m_b = mbits + ((size_t)blk * (B / 32) + wrow) * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    int64_t id = cand_b[c];
-    id = id < 0 ? 0 : (id > n - 1 ? n - 1 : id);
-    w.ids[c] = (int)id;
-    w.ms[c] = (uint32_t)m_b[c];
-  }
-  __syncthreads();
-  stage_rows(w, x, C, d);
-  __syncthreads();
-  attend<SHARED, STABLE, EPI>(w, q, v, out, blk, wrow, B, C, d, dv);
+  const int64_t* cand_b = cand + (size_t)blockIdx.x * C;
+  block_rows<L, F4, SHARED, STABLE, EPI>(
+      [=](int c) { return cand_b[c]; }, q, x, v, mbits, out, B, C, d, dv, n);
 }
 
 // The r3 kernel: pre-gathered tables, dense f32 mask, divide first. Two
@@ -115,22 +104,6 @@ struct EdgeWalk {
     return c;
   }
 };
-
-// r[f..f+3], zero past n: one 16-B load where the row allows it.
-__device__ __forceinline__ float4 load4(const float* r, int f, int n,
-                                        bool vec) {
-  if (vec)
-    return f < n ? __ldg(reinterpret_cast<const float4*>(r + f))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(f < n ? __ldg(r + f) : 0.f,
-                     f + 1 < n ? __ldg(r + f + 1) : 0.f,
-                     f + 2 < n ? __ldg(r + f + 2) : 0.f,
-                     f + 3 < n ? __ldg(r + f + 3) : 0.f);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
-}
 
 template <int F4>  // float4s a lane: d, dv <= 64 F4
 __global__ void __launch_bounds__(kWarps * 32)
@@ -297,32 +270,42 @@ inline size_t dense_smem_bytes(int C, int warps) {
   return sizeof(uint32_t) * 2 * (size_t)warps * (((size_t)C + 31) / 32 + C);
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kern, int nb, int B, size_t smem, cudaStream_t stream,
-           Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(nb, B / kRowsPerCta);
-  kern<<<grid, kWarps * 32, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
+template <bool SHARED, bool STABLE, int EPI>
+int launch_shape(int L, int F4, const float* q, const float* x,
+                 const float* v, const int64_t* cand, const int32_t* mbits,
+                 float* out, int nb, int B, int C, int d, int dv, int n,
+                 size_t smem, cudaStream_t s) {
+  if (L == 8)
+    return launch_rows(fused_block_attention_kernel<8, 1, SHARED, STABLE, EPI>,
+                       L, nb, B, smem, s, q, x, v, cand, mbits, out, B, C, d,
+                       dv, n);
+  if (F4 == 1)
+    return launch_rows(fused_block_attention_kernel<16, 1, SHARED, STABLE, EPI>,
+                       L, nb, B, smem, s, q, x, v, cand, mbits, out, B, C, d,
+                       dv, n);
+  return launch_rows(fused_block_attention_kernel<16, 2, SHARED, STABLE, EPI>,
+                     L, nb, B, smem, s, q, x, v, cand, mbits, out, B, C, d, dv,
+                     n);
 }
 
 template <bool SHARED, bool STABLE>
-int launch_epi(int epilogue, const float* q, const float* x, const float* v,
-               const int64_t* cand, const int32_t* mbits, float* out, int nb,
-               int B, int C, int d, int dv, int n, size_t smem,
-               cudaStream_t s) {
+int launch_epi(int epilogue, int L, int F4, const float* q, const float* x,
+               const float* v, const int64_t* cand, const int32_t* mbits,
+               float* out, int nb, int B, int C, int d, int dv, int n,
+               size_t smem, cudaStream_t s) {
   switch (epilogue) {
     case kNone:
-      return launch(fused_block_attention_kernel<SHARED, STABLE, kNone>, nb,
-                    B, smem, s, q, x, v, cand, mbits, out, B, C, d, dv, n);
+      return launch_shape<SHARED, STABLE, kNone>(L, F4, q, x, v, cand, mbits,
+                                                 out, nb, B, C, d, dv, n, smem,
+                                                 s);
     case kL2Norm:
-      return launch(fused_block_attention_kernel<SHARED, STABLE, kL2Norm>, nb,
-                    B, smem, s, q, x, v, cand, mbits, out, B, C, d, dv, n);
+      return launch_shape<SHARED, STABLE, kL2Norm>(L, F4, q, x, v, cand,
+                                                   mbits, out, nb, B, C, d, dv,
+                                                   n, smem, s);
     case kRelu:
-      return launch(fused_block_attention_kernel<SHARED, STABLE, kRelu>, nb,
-                    B, smem, s, q, x, v, cand, mbits, out, B, C, d, dv, n);
+      return launch_shape<SHARED, STABLE, kRelu>(L, F4, q, x, v, cand, mbits,
+                                                 out, nb, B, C, d, dv, n, smem,
+                                                 s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -334,27 +317,33 @@ extern "C" {
 
 // Launch on `stream`; returns the CUDA error code (0 = launched). Above the
 // card's shared memory, cudaFuncSetAttribute refuses and that error is
-// returned. The caller has checked shapes, types, B % 32 == 0 and
-// d, dv <= 128.
+// returned. A row takes 8 or 16 lanes by its width
+// (block_attention.cuh::row_shape). The caller has checked shapes, types,
+// B % 32 == 0 and d, dv <= 128.
 int fba_launch(const float* q, const float* x, const float* v,
                const int64_t* cand, const int32_t* mbits, float* out, int nb,
                int B, int C, int d, int dv, int n, int shared, int stable,
                int epilogue, void* stream) {
-  if (B % kRowsPerCta != 0 || d < 1 || d > 32 * kMaxF || dv < 1 ||
-      dv > 32 * kMaxF || (shared && dv != d))
+  int L = 0, F4 = 0;
+  if (B % 32 != 0 || C < 1 || d < 1 || dv < 1 || (shared && dv != d) ||
+      !row_shape(d > dv ? d : dv, &L, &F4))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = window_smem_bytes(C, d);
+  const size_t smem = cta_smem_bytes(C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shared) {
-    return stable ? launch_epi<true, true>(epilogue, q, x, x, cand, mbits, out,
-                                           nb, B, C, d, dv, n, smem, s)
-                  : launch_epi<true, false>(epilogue, q, x, x, cand, mbits,
-                                            out, nb, B, C, d, dv, n, smem, s);
+    return stable ? launch_epi<true, true>(epilogue, L, F4, q, x, x, cand,
+                                           mbits, out, nb, B, C, d, dv, n,
+                                           smem, s)
+                  : launch_epi<true, false>(epilogue, L, F4, q, x, x, cand,
+                                            mbits, out, nb, B, C, d, dv, n,
+                                            smem, s);
   }
-  return stable ? launch_epi<false, true>(epilogue, q, x, v, cand, mbits, out,
-                                          nb, B, C, d, dv, n, smem, s)
-                : launch_epi<false, false>(epilogue, q, x, v, cand, mbits, out,
-                                           nb, B, C, d, dv, n, smem, s);
+  return stable ? launch_epi<false, true>(epilogue, L, F4, q, x, v, cand,
+                                          mbits, out, nb, B, C, d, dv, n, smem,
+                                          s)
+                : launch_epi<false, false>(epilogue, L, F4, q, x, v, cand,
+                                           mbits, out, nb, B, C, d, dv, n,
+                                           smem, s);
 }
 
 // The r3 kernel (kernel #5): xg [nb, C, d], vg [nb, C, dv], em [nb, B, C].
@@ -364,7 +353,7 @@ int fba_launch(const float* q, const float* x, const float* v,
 int fba_dense_launch(const float* q, const float* xg, const float* vg,
                      const float* em, float* out, int nb, int B, int C, int d,
                      int dv, void* stream) {
-  if (B % kRowsPerCta != 0 || C < 1 || d < 1 || d > 32 * kMaxF || dv < 1 ||
+  if (B % 32 != 0 || C < 1 || d < 1 || d > 32 * kMaxF || dv < 1 ||
       dv > 32 * kMaxF)
     return (int)cudaErrorInvalidValue;
   // 8 warps a CTA where their rows' words and scores fit, else fewer

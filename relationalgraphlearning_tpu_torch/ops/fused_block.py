@@ -32,6 +32,7 @@ from relationalgraphlearning_tpu_torch.ops import _build
 _NEG = -1e30
 _EPILOGUES = {"none": 0, "l2norm": 1, "relu": 2}
 _MAX_FEATURES = 128         # kMaxF * 32 in the CUDA source
+ROWS_PER_CTA = 16           # kRowsPerCta in csrc/block_attention.cuh
 
 SOURCE = _build.CSRC / "fused_block_attention.cu"
 
@@ -141,14 +142,19 @@ def _check(qb: Tensor, x: Tensor, v: Tensor, cand: Tensor, mbits: Tensor,
         raise ValueError(f"d={d}, dv={v.shape[1]}: the kernel takes 1..128")
     if epilogue not in _EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r} not in {list(_EPILOGUES)}")
-    _build.check_smem(window_smem_bytes(C, d), f"a window of C={C} at d={d}")
+    _build.check_smem(cta_smem_bytes(C), f"a window of C={C}")
 
 
-def window_smem_bytes(C: int, d: int) -> int:
-    """Shared memory a CTA of the windowed kernels takes (block_attention.cuh
-    ``window_smem_bytes``): C rows of d floats, C mask words and ids, and a
-    score row of C floats for each of 8 warps."""
-    return 4 * (C * d + 2 * C + 8 * C)
+def cta_smem_bytes(C: int) -> int:
+    """Shared memory a CTA of the windowed kernels #1/#2/#4/#7 takes
+    (block_attention.cuh ``cta_smem_bytes``): the C slots' table rows
+    (int32), the mask words of its 16 rows (ceil(C/32) each) and each row's
+    edge list (a uint16 a slot, padded to an odd number of 4-byte words).
+    The rows' features are read from the table, not staged, so d does not
+    count."""
+    nw = -(-C // 32)
+    list_stride = (C + 3) // 4 * 4 + 2
+    return 4 * C + 4 * ROWS_PER_CTA * nw + 2 * ROWS_PER_CTA * list_stride
 
 
 def _launch(qb, x, v, cand, mbits, shared, epilogue, stable) -> Tensor:

@@ -29,8 +29,8 @@ from torch import Tensor
 from relationalgraphlearning_tpu_torch.ops import _build
 from relationalgraphlearning_tpu_torch.ops.block_graph import block_window
 from relationalgraphlearning_tpu_torch.ops.fused_block import (
-    _EPILOGUES, _MAX_FEATURES, masked_softmax_agg_plain, pack_emask,
-    window_smem_bytes)
+    _EPILOGUES, _MAX_FEATURES, cta_smem_bytes, masked_softmax_agg_plain,
+    pack_emask)
 
 SOURCE = _build.CSRC / "chunk_block_attention.cu"
 
@@ -194,8 +194,7 @@ def chunk_block_attention(q: Tensor, x: Tensor, chunk_starts: Tensor,
     if epilogue not in _EPILOGUES:
         raise ValueError(f"epilogue {epilogue!r} not in {list(_EPILOGUES)}")
     ntot = nch * chunk + ct
-    _build.check_smem(window_smem_bytes(ntot, d),
-                      f"a window of {ntot} slots at d={d}")
+    _build.check_smem(cta_smem_bytes(ntot), f"a window of {ntot} slots")
     out = torch.empty((n, d), dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):

@@ -98,6 +98,71 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
             qb[:, :48].contiguous(), x, cand, bits[:, :1].contiguous())
 
 
+def _window_problem(dev, C, d, dv, nb=4, B=64, n=4096, unit=False, seed=11):
+    """A random window of C distinct table rows a block and a mask of about
+    5 % edges, with: block 0's last 40 slots the sentinel n (repeated, bits
+    never set) and its rows 0-4 without an edge; block 1's rows 0-3 with
+    every slot an edge (a full edge list). Scores are of order 1 (q scaled
+    by 1/sqrt(d); unit rows for the unshifted softmax)."""
+    g = torch.Generator().manual_seed(seed)
+    cand = torch.stack([torch.randperm(n, generator=g)[:C].sort().values
+                        for _ in range(nb)])
+    cand[0, -40:] = n
+    emask = torch.rand(nb, B, C, generator=g) < 0.05
+    emask[0, :, -40:] = False
+    emask[0, :5] = False
+    emask[1, :4] = True
+    q = torch.randn(nb, B, d, generator=g) / d ** 0.5
+    x, v = torch.randn(n, d, generator=g), torch.randn(n, dv, generator=g)
+    if unit:
+        q, x = q / q.norm(dim=-1, keepdim=True), x / x.norm(dim=-1,
+                                                             keepdim=True)
+    return [t.to(dev) for t in (q, x, v, cand, tfb.pack_emask(emask))]
+
+
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("C,d,dv", [(2048, 128, 128), (301, 32, 32),
+                                    (301, 16, 8), (301, 100, 36),
+                                    (301, 64, 48)])
+def test_cuda_kernel_windows_and_widths(dev, shared, stable, C, d, dv):
+    # C=2048 at d=128: wider than the staged layout admitted; C=301: neither
+    # a multiple of a 32-slot mask word nor of 4; rows of 16, 100 (plain
+    # loads) and 128 floats (two float4 a lane); dv != d for #2
+    qb, x, v, cand, bits = _window_problem(dev, C, d, d if shared else dv,
+                                           unit=not stable)
+    for epilogue in ("none", "l2norm", "relu"):
+        if shared:
+            args = (qb, x, cand, bits, epilogue, stable)
+            got = tfb.fused_block_attention_packed_shared(*args)
+            want = tfb.fused_block_attention_packed_shared_plain(*args)
+        else:
+            args = (qb, x, v, cand, bits, epilogue, stable)
+            got = tfb.fused_block_attention_packed(*args)
+            want = tfb.fused_block_attention_packed_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert (got[0, :5] == 0).all()
+        assert (got[1, :4] != 0).any(-1).all()
+
+
+def test_cuda_kernel_row_lanes(dev):
+    # the two row shapes the width chooses: 8 lanes a row at d=32 (#1 and
+    # #7), 16 at d=64 (#1 and #4)
+    for d, groups in ((32, 4), (64, 2)):
+        qb, x, v, cand, bits = _window_problem(dev, 544, d, d)
+        torch.testing.assert_close(
+            tfb.fused_block_attention_packed_shared(qb, x, cand, bits),
+            tfb.fused_block_attention_packed_shared_plain(qb, x, cand, bits),
+            **TOL)
+        h, starts, tail, mbits, _ = _chunk_problem(dev, groups=groups, d=d)
+        torch.testing.assert_close(
+            tfc.chunk_block_attention(h, h, starts, tail, mbits,
+                                      groups=groups),
+            tfc.chunk_block_attention_plain(h, h, starts, tail, mbits,
+                                            groups=groups), **TOL)
+
+
 def test_cuda_rollout_counts_two_launches_a_step(dev):
     tfb.reset_launch_counts()
     (pos, vel), vals, cov = mega_crowd_rollout(
@@ -196,13 +261,40 @@ def test_cuda_chunk_kernel_partial_coverage(dev):
         tfc.chunk_block_attention_plain(h, h, starts, tail, mbits), **TOL)
 
 
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("groups,d,ct", [(2, 128, 1792), (4, 16, 288),
+                                         (2, 100, 45)])
+def test_cuda_chunk_kernel_windows_and_widths(dev, groups, d, ct, stable):
+    # 256 + 1792 = 2048 slots at d=128, wider than the staged layout
+    # admitted, its tail mostly the repeated sentinel; d=16 on 4 groups;
+    # 301 slots (neither a multiple of 32 nor of 4) at d=100, plain loads.
+    # Rows 5-7 of block 0 have every slot but the sentinels as an edge.
+    h, starts, tail, mbits, _ = _chunk_problem(dev, groups, d, ct)
+    nchunk = mbits.shape[-1] - ct
+    real = torch.cat([torch.ones(nchunk, dtype=torch.bool, device=dev),
+                      tail[0] < h.shape[0]])
+    mbits[0, 0] |= torch.where(real, 0xE0, 0).to(torch.int32)
+    for epilogue in ("none", "l2norm", "relu"):
+        args = (h, h, starts, tail, mbits, epilogue, stable, groups)
+        got = tfc.chunk_block_attention(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, tfc.chunk_block_attention_plain(
+            *args), **TOL)
+        assert (got[:5] == 0).all()
+
+
 def test_cuda_chunk_wrapper_rejects_what_the_kernel_does_not_take(dev):
     h, starts, tail, mbits, _ = _chunk_problem(dev)
     with pytest.raises(TypeError):
         tfc.chunk_block_attention(h, h, starts.long(), tail, mbits)
     with pytest.raises(ValueError, match="shared memory"):
-        wide = torch.zeros(h.shape[0], 128, device=dev)
-        tfc.chunk_block_attention(wide, wide, starts, tail, mbits)
+        # a window too wide for a CTA's 16 edge lists: 256 + 8192 slots
+        # (the staged layout refused d=128 over 544 slots, which now runs)
+        nb, n = starts.shape[0], h.shape[0]
+        wide_tail = torch.full((nb, 8192), n, dtype=torch.int64, device=dev)
+        wide_bits = torch.zeros(nb, mbits.shape[1], 256 + 8192,
+                                dtype=torch.int32, device=dev)
+        tfc.chunk_block_attention(h, h, starts, wide_tail, wide_bits)
     with pytest.raises(ValueError, match="groups"):
         tfc.chunk_block_attention(h, h, starts, tail, mbits, groups=3)
 
@@ -265,12 +357,14 @@ def test_cuda_r3_kernel_other_widths(dev, d, dv):
 
 def test_cuda_r3_kernel_window_limit(dev):
     # the launch is the kernel's one check of shared memory: the widest
-    # window that the staged layout (#1's, which #5 used before) admits at
-    # d=4 runs, and a window too wide for one warp's mask words and scores
-    # is refused
+    # window that #1's former staged layout (which #5 also used before: C
+    # rows of d floats, C mask words and ids, 8 warps' score rows) admits
+    # at d=4 runs, and a window too wide for one warp's mask words and
+    # scores is refused
     d = 4
     widest_staged = max(c for c in range(1, 1 << 15)
-                        if tfb.window_smem_bytes(c, d) <= tbuild.MAX_SMEM_BYTES)
+                        if 4 * (c * d + 2 * c + 8 * c)
+                        <= tbuild.MAX_SMEM_BYTES)
     qb, xg, vg, emask = _r3_problem(dev, widest_staged, nb=1, B=32, d=d, dv=d)
     got = tfb.fused_block_attention(qb, xg, vg, emask)
     torch.testing.assert_close(

@@ -9,6 +9,8 @@ is held against the same plain versions on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 from relationalgraphlearning_tpu.ops import block_graph as jbg
 from relationalgraphlearning_tpu.ops import pallas_block as jpb
 from relationalgraphlearning_tpu.ops import sparse as jsp
+from relationalgraphlearning_tpu_torch.ops import _build as tbuild
 from relationalgraphlearning_tpu_torch.ops import block_graph as tbg
 from relationalgraphlearning_tpu_torch.ops import fused_block as tfb
 
@@ -215,3 +218,58 @@ def test_aligned_route_matches_pallas_aligned(shared):
     # the expanded ids the kernel gathers through are the window's cand
     np.testing.assert_array_equal(tfb.aligned_cand(tst, align).numpy(),
                                   np.asarray(cand))
+
+
+# ------------------------------------ the CTA layout of kernels #1/#2/#4/#7
+def _cuda_cta_smem_bytes():
+    """``cta_smem_bytes`` of ``csrc/block_attention.cuh`` as a Python
+    function: its C++ (and that of ``list_stride``) read and evaluated, so
+    that the test holds the wrappers' reckoning against the source the card
+    builds."""
+    src = (tbuild.CSRC / "block_attention.cuh").read_text()
+    rows = int(re.search(r"constexpr int kRowsPerCta = (\d+);", src)[1])
+    stride = re.search(r"int list_stride\(int C\) \{\s*return (.*?);",
+                       src)[1]
+    body = re.search(r"inline size_t cta_smem_bytes\(int C\) "
+                     r"\{(.*?)\n\}", src, re.S)[1]
+    nw = re.search(r"const size_t nw = (.*?);", body, re.S)[1]
+    ret = re.search(r"return (.*?);", body, re.S)[1]
+    sizes = {"int": 4, "uint32_t": 4, "uint16_t": 2}
+
+    def py(expr):
+        expr = re.sub(r"sizeof\((\w+)\)", lambda m: str(sizes[m[1]]), expr)
+        return " ".join(expr.replace("(size_t)", "").replace("/", "//")
+                        .split())
+
+    def smem(C):
+        env = dict(C=C, kRowsPerCta=rows,
+                   list_stride=lambda c: eval(py(stride), {}, dict(C=c)))
+        env["nw"] = eval(py(nw), {}, env)
+        return eval(py(ret), {}, env)
+    return rows, smem
+
+
+def test_cta_smem_reckoning_matches_the_cuda_source():
+    rows, smem = _cuda_cta_smem_bytes()
+    assert rows == tfb.ROWS_PER_CTA
+    for C in (1, 2, 3, 4, 31, 32, 33, 301, 544, 576, 1024, 2048, 8448):
+        assert tfb.cta_smem_bytes(C) == smem(C), C
+
+
+@pytest.mark.parametrize("C", [576, 544])
+def test_main_path_windows_fit_several_ctas_an_sm(C):
+    # slice 1's rollout (C=576) and the relation chain's block and chunk
+    # routes (544 slots): at least 4 CTAs of 16 rows an SM by shared memory,
+    # and the slice's 10,240 rows in one wave on an H100's 132 SMs
+    per_sm = tbuild.MAX_SMEM_BYTES // (tfb.cta_smem_bytes(C) + 1024)
+    assert per_sm >= 4
+    assert per_sm * tfb.ROWS_PER_CTA * 132 >= 10240
+
+
+def test_wide_windows_fit_and_wider_are_refused():
+    # C=2048 at any d now fits a CTA; the staged layout took C*d floats of
+    # rows and refused it at d=128 (4 * (2048*128 + 10*2048) B); 8,448
+    # slots do not fit
+    assert tfb.cta_smem_bytes(2048) <= tbuild.MAX_SMEM_BYTES
+    assert 4 * (2048 * 128 + 10 * 2048) > tbuild.MAX_SMEM_BYTES
+    assert tfb.cta_smem_bytes(8448) > tbuild.MAX_SMEM_BYTES

@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py            # the run the port is held to
-    python3 chip_smoke.py --profile  # also where a rollout chunk's time goes
+    python3 chip_smoke.py --profile  # also where a rollout chunk's time
+                                     # goes, eager and graphed
 
 Phases, each of which exits non-zero on failure:
 
@@ -22,8 +23,10 @@ Phases, each of which exits non-zero on failure:
    2 and 4), #5 (the r3 dense-mask form) and the aligned route of #1, at the
    relation chain's shapes (n=8192, K=16, B=256, d=64 and 32) and, for #3,
    at the pallas rollout's (n=10,240, d=32) with its own features held
-   against float64; #4 and #7 also timed with a cold L2 and with an empty
-   mask.
+   against float64; #3 with keys that are the values (one read a
+   neighbour row) and with a separate value table, timed at both shapes
+   with a cold L2 too; #4 and #7 also timed with a cold L2 and with an
+   empty mask.
 3c. Kernel #6 (the A/B harness's dense block attention) against its plain
    version at the harness's shapes (the chain's graph, nb=32, B=256, C=544,
    d=64) in all eight float32/bfloat16 x divide-before/after x bool/int-mask
@@ -34,28 +37,39 @@ Phases, each of which exits non-zero on failure:
    the same shapes. #1, #5 and #6 are also timed with a cold L2
    (``cold_ms``).
 4. Slice 1: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
-   backend with packed masks, B=256, C=576, rebuild every 8 steps. The
-   kernels' launch counts are zeroed just before and read just after; the
-   shared-table kernel must have launched 64 times (2 GCN layers x 32 steps).
-   Checks coverage 1, finite results, the block+kernel value net against the
-   gather backend on one rebuilt graph, and a small rollout on the card
-   against the same rollout on the CPU.
+   backend with packed masks, B=256, C=576, rebuild every 8 steps, eager
+   (``graphed=False``) and graphed (``MegaCrowdRollout``: each chunk's 8
+   steps one captured CUDA graph, captured once before the timed runs), in
+   turns. The kernels' launch counts are zeroed just before each eager run
+   and read just after; the shared-table kernel must have launched 64 times
+   (2 GCN layers x 32 steps), and the chunk's graph must hold 16 of its
+   launches and none of another kernel. Each graphed run must equal the
+   eager run bit for bit. Checks coverage 1, finite results, the
+   block+kernel value net against the gather backend on one rebuilt graph,
+   and a small rollout on the card against the same rollout on the CPU.
 5. The relation chain (``relation_chain.py``) at n=8192, K=16, d=64,
    inner=100, B=256 over every route, and ``chunk_d32`` beside ``block`` at
    d=32: coverage exactly 1, exactly ``inner`` launches of each route's
    kernel (counts zeroed before each route), one application and the final
-   h of every route against the plain gather chain, and Gedges/s per route
-   as the median of interleaved runs.
+   h of every route against the plain gather chain; then each route's
+   ``inner`` applications captured as one CUDA graph (``runner``), which
+   must hold exactly ``inner`` launches of the route's kernel and replay the
+   eager run bit for bit; Gedges/s per route, graphed (5 replays between
+   synchronises, the reference's protocol) and eager, as medians of
+   interleaved runs.
 6. Slice 2's rollout: ``mega_crowd_rollout(n=10240, K=10, steps=32,
-   backend="pallas", rebuild_every=8)``: exactly 64 launches of kernel #3,
-   finite results, and the pallas, block+kernel and gather value nets equal
-   on one rebuilt graph.
+   backend="pallas", rebuild_every=8)``, eager and graphed in turns as in
+   phase 4: exactly 64 launches of kernel #3 an eager run, 16 in the
+   chunk's graph, replays equal to the eager run, finite results, and the
+   pallas, block+kernel and gather value nets equal on one rebuilt graph.
 7. The A/B harness (``tools/ab_kernel.py`` of the port) at its shapes
    (n=8192, K=16, d=64, B=256, C=544, inner=100), fewer rounds: coverage
    exactly 1 for the window and the chunked fetch, exactly ``inner``
    launches of #6 (#4 for ``chunkfetch_f32``) in each variant's checked
-   chain run, and each variant's final h against the plain gather chain
-   (the frozen-table variants against the same chain on the plain version).
+   chain run and in its captured graph, each replay equal to the checked
+   run, and each variant's final h against the plain gather chain (the
+   frozen-table variants against the same chain on the plain version);
+   Gedges/s graphed and eager, in the same turns.
 8. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
@@ -74,6 +88,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from relationalgraphlearning_tpu_torch import captured
 from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch.configs.base import GCNConfig
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
@@ -94,6 +109,13 @@ SLICE = dict(n=10240, K=10, steps=32, backend="block", packed=True,
              block_B=256, block_C=576, rebuild_every=8)
 PALLAS = dict(n=10240, K=10, steps=32, backend="pallas", rebuild_every=8)
 CHAIN = dict(n=8192, K=16, inner=100, B=256, C=544)
+# A replay of a captured graph against the eager run on the same inputs:
+# the same kernels in the same order, so the same bits.
+REPLAY_TOL = dict(rtol=0, atol=0)
+# Graph replays a timed chain round takes between synchronises (the
+# reference's ``_timeit`` amortises its dispatch the same way); an eager
+# round is one chain run.
+CHAIN_GRAPH_REPS = 5
 # The final h of every route after CHAIN["inner"] applications against the
 # plain gather chain's: the chain contracts (a CPU rehearsal at this size
 # drifted 1.5e-7), so the float32 sums of one application stay that small.
@@ -401,16 +423,6 @@ def kernel_phase(dev, flops, bw, report):
 
 
 # ----------------------------------------------------------------- phase 3b
-def reset_counts():
-    for mod in (fb, fg, fc, ab):
-        mod.reset_launch_counts()
-
-
-def counts() -> dict:
-    return {**fb.launch_counts(), **fg.launch_counts(), **fc.launch_counts(),
-            **ab.launch_counts()}
-
-
 def timed_row(report, name, replaces, source, fn, plain, lib, nbytes, ops,
               flops, bw, errs, shapes, cold=False):
     """One ``kernels`` row; with ``cold``, also the kernel's time with a
@@ -480,18 +492,30 @@ def kernel_phase_2(dev, flops, bw, report):
 
     # ---- #3, the per-edge gather kernel: the chain's semantics
     q64, x64, v48 = randn(n, 64), randn(n, 64), randn(n, 48)
+    # the separate value table draws from its own seed, leaving g's draws,
+    # and so the later cases' inputs, as they were
+    v64 = torch.randn(n, 64, generator=torch.Generator().manual_seed(4)).to(
+        dev)
     mask = torch.rand(n, K, generator=g).to(dev) > 0.3
     mask[:4] = False                               # fully masked rows
     dup = cols.clone()
     dup[:, 1] = dup[:, 0]                          # a duplicate neighbour
-    for label, args in (("chain graph, mask=None", (q64, x64, x64, cols)),
-                        ("masked, fully masked rows, dv=48",
+    # keys ≡ values (x is v: one read a neighbour row) and x ≠ v (a value
+    # table of its own, loaded beside the keys)
+    for label, args in (("keys = values, chain graph, mask=None",
+                         (q64, x64, x64, cols)),
+                        ("keys = values, fully masked rows",
+                         (q64, x64, x64, cols, mask)),
+                        ("x != v, chain graph", (q64, x64, v64, cols)),
+                        ("x != v, fully masked rows, dv=48",
                          (q64, x64, v48, cols, mask)),
-                        ("duplicate cols", (q64, x64, x64, dup))):
+                        ("keys = values, duplicate cols",
+                         (q64, x64, x64, dup))):
         compare("#3", label, fg.fused_gather_attention(*args),
                 fg.fused_gather_attention_plain(*args))
-    got = fg.fused_gather_attention(q64, x64, v48, cols, mask)
-    torch.testing.assert_close(got[:4], v48[cols[:4]].mean(1), **TOL)
+    for v in (x64, v48):
+        got = fg.fused_gather_attention(q64, x64, v, cols, mask)
+        torch.testing.assert_close(got[:4], v[cols[:4]].mean(1), **TOL)
     qp, Hp, colsp = pallas_inputs(dev)
     qn, xn = randn(*qp.shape), randn(*Hp.shape)
     compare("#3", "rollout graph, d=32", fg.fused_gather_attention(
@@ -587,11 +611,21 @@ def kernel_phase_2(dev, flops, bw, report):
                                                scale=1.0),
         4 * (2 * np_ * dp + np_ * dp) + 8 * colsp.numel(),
         np_ * Kp * (4 * dp + 2), flops, bw, errs["#3"],
-        dict(n=np_, K=Kp, d=dp, dv=dp)))
+        dict(n=np_, K=Kp, d=dp, dv=dp), cold=True))
+    # the same with a value table of its own (x ≠ v, the values' rows
+    # loaded beside the keys'): the cost of reading each row twice
+    Hv = Hp.clone()
+    report["kernel_detail"]["fused_gather_attention"]["ms_x_ne_v"] = \
+        device_ms(lambda: fg.fused_gather_attention(qp, Hp, Hv, colsp))
     # and at the chain's (a detail: the chain's gather_kernel route)
     kg64 = x64[cols]
+
+    def run64():
+        return fg.fused_gather_attention(q64, x64, x64, cols)
     detail = dict(
-        ms=device_ms(lambda: fg.fused_gather_attention(q64, x64, x64, cols)),
+        ms=device_ms(run64), cold_ms=device_ms_cold(run64),
+        ms_x_ne_v=device_ms(lambda: fg.fused_gather_attention(
+            q64, x64, v64, cols)),
         plain_ms=device_ms(lambda: fg.fused_gather_attention_plain(
             q64, x64, x64, cols), reps=20),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
@@ -599,8 +633,9 @@ def kernel_phase_2(dev, flops, bw, report):
         bound=bound(4 * 3 * n * 64 + 8 * cols.numel(), n * K * (4 * 64 + 2),
                     flops, bw))
     report["kernel_detail"]["fused_gather_attention@chain"] = detail
-    print(f"kernel fused_gather_attention at the chain's shapes: {detail}",
-          flush=True)
+    print(f"kernel fused_gather_attention: x != v "
+          f"{report['kernel_detail']['fused_gather_attention']['ms_x_ne_v']:.4f}"
+          f" ms; at the chain's shapes: {detail}", flush=True)
 
     # #4 and #7 at the chain's shapes on its unit features
     for kernel, d, groups, replaces in (
@@ -767,28 +802,84 @@ def knn_overlap(pos, vel, rebuild_every):
                  .float().mean())
 
 
+def rollout_turns(cfg, kernel, dev, runs=3):
+    """The rollout ``cfg`` eager (``mega_crowd_rollout(graphed=False)``) and
+    graphed (one ``MegaCrowdRollout``, captured first and timed apart, as the
+    reference compiles before it times), ``runs`` times each in turns (E G,
+    G E, ...), after an eager warm-up: the host's clock varies from run to
+    run on a shared host, so medians are reported. Each eager run zeroes the
+    counts just before it and checks them just after: 2 launches of
+    ``kernel`` a step, none of another. The chunk's graph must hold 2 a
+    step of its R, and a graphed run must equal the eager one bit for bit.
+    Returns the eager run's ((pos, vel), values, coverage), its launches
+    and the record of the turns."""
+    mega_crowd.mega_crowd_rollout(**{**cfg, "steps": 8}, device=dev,
+                                  graphed=False)
+    layers, R = GCNConfig().num_layer, cfg["rebuild_every"]
+    runner = mega_crowd.MegaCrowdRollout(
+        **{k: v for k, v in cfg.items() if k not in ("n", "steps")},
+        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(mega_crowd.initial_crowd(cfg["n"], device=dev), R)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph = runner.graph.launches
+    want = {k: 0 for k in graph}
+    want[kernel] = layers * R
+    if graph != want:
+        raise RuntimeError(f"the rollout chunk's graph holds {graph}, want "
+                           f"{want}")
+    walls = {"eager": [], "graphed": []}
+    out = {}
+    for r in range(runs):
+        for mode in ("eager", "graphed")[::1 if r % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            captured.reset_launch_counts()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                out[mode] = mega_crowd.mega_crowd_rollout(**cfg, device=dev,
+                                                          graphed=False)
+            else:
+                out[mode] = runner(mega_crowd.initial_crowd(cfg["n"],
+                                                            device=dev),
+                                   cfg["steps"])
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            if mode == "eager":
+                launches = captured.launch_counts()
+                expect = {k: 0 for k in launches}
+                expect[kernel] = layers * cfg["steps"]
+                if launches != expect:
+                    raise RuntimeError(f"kernel launches in the rollout: "
+                                       f"{launches}, want {expect}")
+    (pos, vel), vals, cov = out["eager"]
+    (pos_g, vel_g), vals_g, cov_g = out["graphed"]
+    replay_err = 0.0
+    for name, got, ref in (("pos", pos_g, pos), ("vel", vel_g, vel),
+                           ("values", vals_g, vals), ("coverage", cov_g,
+                                                      cov)):
+        torch.testing.assert_close(
+            got, ref, **REPLAY_TOL,
+            msg=lambda m: f"graphed rollout {name} vs eager: {m}")
+        replay_err = max(replay_err, float((got - ref).abs().max()))
+    steps_done = cfg["n"] * cfg["steps"]
+    turns = dict(
+        agent_steps_per_s=steps_done / statistics.median(walls["graphed"]),
+        agent_steps_per_s_eager=steps_done / statistics.median(
+            walls["eager"]),
+        agent_steps_per_s_runs=[steps_done / w for w in walls["graphed"]],
+        agent_steps_per_s_eager_runs=[steps_done / w
+                                      for w in walls["eager"]],
+        capture_s=capture_s, graph_launches=graph, replay_err=replay_err)
+    return (pos, vel), vals, cov, launches, turns
+
+
 def slice_phase(dev, report, runs=3):
-    """The slice's rollout, ``runs`` times after a warm-up: the host's clock
-    varies from run to run on a shared host, so the median is reported. Each
-    run zeroes the launch counts before it and checks them after."""
-    mega_crowd.mega_crowd_rollout(**{**SLICE, "steps": 8}, device=dev)
-    want = GCNConfig().num_layer * SLICE["steps"]
-    walls = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        (pos, vel), vals, cov = mega_crowd.mega_crowd_rollout(**SLICE,
-                                                              device=dev)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        launches = counts()
-        expect = {k: 0 for k in launches}
-        expect["fused_block_attention_packed_shared"] = want
-        if launches != expect:
-            raise RuntimeError(f"kernel launches in the rollout: {launches}, "
-                               f"want {expect}")
-    wall = statistics.median(walls)
+    """The slice's rollout, eager and graphed in turns (``rollout_turns``),
+    and its checks."""
+    (pos, vel), vals, cov, launches, turns = rollout_turns(
+        SLICE, "fused_block_attention_packed_shared", dev, runs)
     if float(cov) != 1.0:
         raise RuntimeError(f"minimum coverage {float(cov)} != 1")
     for name, t in (("pos", pos), ("vel", vel), ("values", vals)):
@@ -797,7 +888,6 @@ def slice_phase(dev, report, runs=3):
     if vals.shape != (SLICE["steps"],) or pos.shape != (SLICE["n"], 2):
         raise RuntimeError(f"shapes {tuple(vals.shape)}, {tuple(pos.shape)}")
     overlap = knn_overlap(pos, vel, SLICE["rebuild_every"])
-    rate = SLICE["n"] * SLICE["steps"] / wall
 
     # the block+kernel value net equals the gather backend on one graph
     pos_s, (vel_s,), cols, _, cand, mbits, _ = mega_crowd.rebuild(
@@ -825,32 +915,35 @@ def slice_phase(dev, report, runs=3):
                     float((valg.cpu() - valc).abs().max()))
 
     report["slice"] = dict(
-        config=SLICE, wall_s=wall, agent_steps_per_s=rate,
-        agent_steps_per_s_runs=[SLICE["n"] * SLICE["steps"] / w
-                                for w in walls],
-        coverage=float(cov), knn_overlap=overlap, launches=launches,
-        value_mean_last=float(vals[-1]), net_block_vs_gather_err=net_err,
+        config=SLICE, **turns, coverage=float(cov), knn_overlap=overlap,
+        launches=launches, value_mean_last=float(vals[-1]),
+        net_block_vs_gather_err=net_err,
         small_rollout_cuda_vs_cpu_err=small_err)
-    print(f"slice: {rate:.1f} agent-steps/s, median of {runs} runs "
-          f"({wall:.3f} s for {SLICE['steps']} steps of {SLICE['n']} "
-          f"agents; runs {[round(w, 4) for w in walls]} s), coverage "
-          f"{float(cov)}, knn_overlap {overlap:.4f}, launches {launches}, "
-          f"net block vs gather {net_err:.3g}, small rollout card vs CPU "
-          f"{small_err:.3g}", flush=True)
+    print(f"slice: {turns['agent_steps_per_s']:.1f} agent-steps/s graphed, "
+          f"{turns['agent_steps_per_s_eager']:.1f} eager, medians of {runs} "
+          f"runs in turns (graphed {turns['agent_steps_per_s_runs']}, eager "
+          f"{turns['agent_steps_per_s_eager_runs']}; capture "
+          f"{turns['capture_s']:.3f} s), coverage {float(cov)}, knn_overlap "
+          f"{overlap:.4f}, launches {launches}, graph launches "
+          f"{ {k: v for k, v in turns['graph_launches'].items() if v} }, "
+          f"replay vs eager {turns['replay_err']:.3g}, net block vs gather "
+          f"{net_err:.3g}, small rollout card vs CPU {small_err:.3g}",
+          flush=True)
     return launches
 
 
 # ------------------------------------------------------------------ phase 5
 def chain_phase(dev, report, rounds=5):
-    """The relation chain over every route. Each route's counts are zeroed
-    just before its checked run and read just after."""
+    """The relation chain over every route, eager and as captured graphs.
+    Each route's counts are zeroed just before its checked eager run and
+    read just after."""
     n, K, inner = CHAIN["n"], CHAIN["K"], CHAIN["inner"]
     cols = rc.crowd_graph(n, K, device=dev)
     h0 = {d: rc.seed_features(n, d, device=dev) for d in (64, 32)}
     gather = rc.prepare("gather", cols)
     ref_one = {d: rc.apply(gather, h) for d, h in h0.items()}
     ref_final = {d: rc.run(gather, h, inner) for d, h in h0.items()}
-    preps, result, launches = {}, {}, {}
+    preps, graphs, result, launches = {}, {}, {}, {}
     for route, d in CHAIN_CASES:
         label = f"{route}@d{d}"
         prep = preps[label] = rc.prepare(route, cols, CHAIN["B"], CHAIN["C"])
@@ -862,10 +955,10 @@ def chain_phase(dev, report, rounds=5):
                                    msg=lambda m: f"chain {label}, one "
                                                  f"application: {m}")
         torch.cuda.synchronize()
-        reset_counts()
+        captured.reset_launch_counts()
         h = rc.run(prep, h0[d], inner)
         torch.cuda.synchronize()
-        got = counts()
+        got = captured.launch_counts()
         want = {k: 0 for k in got}
         if route in ROUTE_KERNEL:
             want[ROUTE_KERNEL[route]] = inner
@@ -878,31 +971,58 @@ def chain_phase(dev, report, rounds=5):
         if final_err > CHAIN_FINAL_TOL:
             raise RuntimeError(f"chain {label}: final h off the gather chain "
                                f"by {final_err} > {CHAIN_FINAL_TOL}")
+        # the inner applications captured once (timed apart, as the
+        # reference compiles before it times): the graph holds exactly the
+        # eager run's launches and replays it bit for bit
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphs[label] = rc.runner(prep, h0[d], inner)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        if graphs[label].launches != want:
+            raise RuntimeError(f"chain {label}: graph launches "
+                               f"{graphs[label].launches}, want {want}")
+        replayed = graphs[label](h0[d])
+        torch.testing.assert_close(
+            replayed, h, **REPLAY_TOL,
+            msg=lambda m: f"chain {label}, replay vs eager: {m}")
         result[label] = dict(
             coverage=cov, one_step_err=float((one - ref_one[d]).abs().max()),
-            final_err=final_err, launches=got)
+            final_err=final_err, launches=got, capture_s=capture_s,
+            replay_err=float((replayed - h).abs().max()))
 
-    # Gedges/s: interleaved runs (ABC... then ...CBA), median per route
+    # Gedges/s: interleaved runs (ABC... then ...CBA), graphed and eager in
+    # the same turns, medians per route
     labels = [f"{r}@d{d}" for r, d in CHAIN_CASES]
-    runs = {label: [] for label in labels}
+    runs = {label: {"graphed": [], "eager": []} for label in labels}
     for r in range(rounds):
         for label in (labels if r % 2 == 0 else labels[::-1]):
             d = int(label.split("@d")[1])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rc.run(preps[label], h0[d], inner)
-            torch.cuda.synchronize()
-            runs[label].append(n * K * inner / (time.perf_counter() - t0)
-                               / 1e9)
+            modes = (("graphed", CHAIN_GRAPH_REPS), ("eager", 1))
+            for mode, reps in modes[::1 if r % 2 == 0 else -1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    if mode == "graphed":
+                        graphs[label](h0[d])
+                    else:
+                        rc.run(preps[label], h0[d], inner)
+                torch.cuda.synchronize()
+                runs[label][mode].append(
+                    n * K * inner * reps / (time.perf_counter() - t0) / 1e9)
     for label in labels:
-        result[label]["gedges_per_s"] = statistics.median(runs[label])
-        result[label]["gedges_per_s_runs"] = runs[label]
-        print(f"chain {label}: {result[label]['gedges_per_s']:.4f} Gedges/s "
-              f"(median of {rounds}), coverage {result[label]['coverage']}, "
-              f"one-step err {result[label]['one_step_err']:.3g}, final err "
-              f"{result[label]['final_err']:.3g}, launches "
-              f"{ {k: v for k, v in result[label]['launches'].items() if v} }",
-              flush=True)
+        res = result[label]
+        res["gedges_per_s"] = statistics.median(runs[label]["graphed"])
+        res["gedges_per_s_eager"] = statistics.median(runs[label]["eager"])
+        res["gedges_per_s_runs"] = runs[label]["graphed"]
+        res["gedges_per_s_eager_runs"] = runs[label]["eager"]
+        print(f"chain {label}: {res['gedges_per_s']:.4f} Gedges/s graphed, "
+              f"{res['gedges_per_s_eager']:.4f} eager (medians of {rounds}),"
+              f" coverage {res['coverage']}, one-step err "
+              f"{res['one_step_err']:.3g}, final err {res['final_err']:.3g}, "
+              f"replay err {res['replay_err']:.3g}, launches "
+              f"{ {k: v for k, v in res['launches'].items() if v} }, capture "
+              f"{res['capture_s']:.3f} s", flush=True)
     report["chain"] = dict(config=CHAIN, final_tol=CHAIN_FINAL_TOL,
                            routes=result)
     return launches
@@ -910,32 +1030,15 @@ def chain_phase(dev, report, rounds=5):
 
 # ------------------------------------------------------------------ phase 6
 def pallas_phase(dev, report, runs=3):
-    """Slice 2's rollout on the per-edge gather kernel, ``runs`` times after
-    a warm-up; counts zeroed before each run and checked after."""
-    mega_crowd.mega_crowd_rollout(**{**PALLAS, "steps": 8}, device=dev)
-    want = GCNConfig().num_layer * PALLAS["steps"]
-    walls = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        (pos, vel), vals, cov = mega_crowd.mega_crowd_rollout(**PALLAS,
-                                                              device=dev)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        launches = counts()
-        expect = {k: 0 for k in launches}
-        expect["fused_gather_attention"] = want
-        if launches != expect:
-            raise RuntimeError(f"kernel launches in the pallas rollout: "
-                               f"{launches}, want {expect}")
-    wall = statistics.median(walls)
+    """Slice 2's rollout on the per-edge gather kernel, eager and graphed in
+    turns (``rollout_turns``), and its checks."""
+    (pos, vel), vals, cov, launches, turns = rollout_turns(
+        PALLAS, "fused_gather_attention", dev, runs)
     for name, t in (("pos", pos), ("vel", vel), ("values", vals)):
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"pallas rollout: non-finite {name}")
     if vals.shape != (PALLAS["steps"],) or pos.shape != (PALLAS["n"], 2):
         raise RuntimeError(f"shapes {tuple(vals.shape)}, {tuple(pos.shape)}")
-    rate = PALLAS["n"] * PALLAS["steps"] / wall
 
     # pallas, block+kernel and gather value nets on one rebuilt graph
     pos_s, (vel_s,), cols, _, cand, mbits, cov_b = mega_crowd.rebuild(
@@ -954,39 +1057,46 @@ def pallas_phase(dev, report, runs=3):
     errs = dict(pallas_vs_block=float((v_pallas - v_block).abs().max()),
                 pallas_vs_gather=float((v_pallas - v_gather).abs().max()))
     report["pallas_rollout"] = dict(
-        config=PALLAS, wall_s=wall, agent_steps_per_s=rate,
-        agent_steps_per_s_runs=[PALLAS["n"] * PALLAS["steps"] / w
-                                for w in walls],
-        launches=launches, value_mean_last=float(vals[-1]), **errs)
-    print(f"pallas rollout: {rate:.1f} agent-steps/s, median of {runs} runs "
-          f"({wall:.3f} s; runs {[round(w, 4) for w in walls]} s), launches "
-          f"{ {k: v for k, v in launches.items() if v} }, nets {errs}",
+        config=PALLAS, **turns, launches=launches,
+        value_mean_last=float(vals[-1]), **errs)
+    print(f"pallas rollout: {turns['agent_steps_per_s']:.1f} agent-steps/s "
+          f"graphed, {turns['agent_steps_per_s_eager']:.1f} eager, medians "
+          f"of {runs} runs in turns (graphed "
+          f"{turns['agent_steps_per_s_runs']}, eager "
+          f"{turns['agent_steps_per_s_eager_runs']}; capture "
+          f"{turns['capture_s']:.3f} s), launches "
+          f"{ {k: v for k, v in launches.items() if v} }, graph launches "
+          f"{ {k: v for k, v in turns['graph_launches'].items() if v} }, "
+          f"replay vs eager {turns['replay_err']:.3g}, nets {errs}",
           flush=True)
     return launches
 
 
 # ------------------------------------------------------------------ phase 7
 def harness_phase(dev, report):
-    """The A/B harness at its shapes. ``run`` zeroes the counts of #6 and
-    #4 before each variant's checked chain run and reads them after; the
-    totals over the whole run are read here too."""
+    """The A/B harness at its shapes, each variant's chain graphed (its
+    timed rows) and eager, in the same turns. ``run`` zeroes the counts of
+    #6 and #4 before each variant's checked chain run and reads them after;
+    the totals over the whole run are read here too."""
     inner = HARNESS["inner"]
     torch.cuda.synchronize()
-    reset_counts()
+    captured.reset_launch_counts()
     finals = {}
     records = ak.run(**HARNESS, device=dev, finals=finals)
     torch.cuda.synchronize()
-    total = counts()
+    total = captured.launch_counts()
     chunk, recs = records[0], records[1:]
     for rec in records:
         print(json.dumps(rec), flush=True)
     if chunk["chunk_coverage"] != 1.0:
         raise RuntimeError(f"harness: chunk coverage {chunk}")
     # ``run`` last zeroed the counts before chunkfetch_f32's checked run,
-    # the last variant's; the timed rounds came after it
+    # the last variant's; its graph's two warm-up runs and its capture came
+    # after it, then the timed rounds, whose replays count nothing and whose
+    # eager runs count every launch
     timed = HARNESS["rounds"] * HARNESS["reps"]
     want_total = {k: 0 for k in total}
-    want_total["chunk_block_attention"] = inner
+    want_total["chunk_block_attention"] = inner * (1 + 2 + 1)
     for rec in recs:
         name = rec["variant"]
         if rec["coverage"] != 1.0:
@@ -995,9 +1105,13 @@ def harness_phase(dev, report):
                   else "ab_block_attention")
         want = {"ab_block_attention": 0, "chunk_block_attention": 0,
                 kernel: inner}
-        if rec["launches"] != want:
+        if rec["launches"] != want or rec["graph_launches"] != want:
             raise RuntimeError(f"harness {name}: launches {rec['launches']}"
-                               f", want {want}")
+                               f", graph launches {rec['graph_launches']}, "
+                               f"want {want}")
+        if rec["replay_err"] > REPLAY_TOL["atol"]:
+            raise RuntimeError(f"harness {name}: replay off the eager run by "
+                               f"{rec['replay_err']}")
         want_total[kernel] += inner * timed
     if total != want_total:
         raise RuntimeError(f"harness: launches over the run {total}, want "
@@ -1052,7 +1166,8 @@ def profile_phase(dev, report):
     """Where one 8-step chunk of the slice's time goes: host time of each
     section with a synchronise after it, the chunk's wall time without those
     synchronises, and the profiler's device time by kernel over one more
-    chunk."""
+    chunk; then the wall and device time of one graphed chunk (the rebuild
+    eager, the steps one replay)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1111,15 +1226,20 @@ def profile_phase(dev, report):
     print(f"profile: one 8-step chunk {wall:.4f} s; host seconds with a "
           f"sync after each section: {times}", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        chunk()
-        torch.cuda.synchronize()
-    kernels = [(ev.self_device_time_total, ev.count, ev.key)
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA]
-    kernels.sort(reverse=True)
-    busy = sum(k[0] for k in kernels) / 1e6
+    def traced(fn):
+        """(device kernels by time, device busy s, the profiler) over one
+        call of ``fn``."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                          for ev in prof.key_averages()
+                          if ev.device_type == DeviceType.CUDA),
+                         reverse=True)
+        return kernels, sum(k[0] for k in kernels) / 1e6, prof
+
+    kernels, busy, prof = traced(chunk)
     report["profile"] = dict(
         chunk_wall_s=wall, section_host_s=times,
         device_busy_s=busy, device_idle_share=1 - busy / wall,
@@ -1134,10 +1254,31 @@ def profile_phase(dev, report):
     for u, c, k in kernels[:10]:
         print(f"  {u / 1e3:10.3f} ms  x{c:<6d} {k[:90]}", flush=True)
 
+    # the same chunk graphed: the rebuild eager, the 8 steps one replay
+    runner = mega_crowd.MegaCrowdRollout(
+        **{k: v for k, v in cfg.items() if k not in ("n", "steps")},
+        device=dev)
+    R = cfg["rebuild_every"]
+    runner(pos, R)                                   # the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner(pos, R)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t0
+    kernels_g, busy_g, _ = traced(lambda: runner(pos, R))
+    report["profile"]["graphed"] = dict(
+        chunk_wall_s=wall_g, device_busy_s=busy_g,
+        device_idle_share=1 - busy_g / wall_g,
+        top=[dict(device_us=u, count=c, name=k)
+             for u, c, k in kernels_g[:25]])
+    print(f"profile, graphed chunk: device busy {busy_g:.4f} s of "
+          f"{wall_g:.4f} s (idle share {1 - busy_g / wall_g:.3f}; eager "
+          f"{1 - busy / wall:.3f})", flush=True)
+
 
 def backend_phase(dev, report, rounds=6):
-    """The slice's rollout under each aggregation path of the value net
-    (block+kernel #1, plain block, gather, pallas = kernel #3), in turns
+    """The slice's eager rollout under each aggregation path of the value
+    net (block+kernel #1, plain block, gather, pallas = kernel #3), in turns
     (ABCD DCBA ...), so that drift hits every path alike."""
     paths = (("block+kernel", "block", True), ("block, plain", "block", False),
              ("gather", "gather", False), ("pallas", "pallas", False))
@@ -1148,7 +1289,8 @@ def backend_phase(dev, report, rounds=6):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mega_crowd.mega_crowd_rollout(**{**SLICE, "backend": backend,
-                                         "packed": packed}, device=dev)
+                                         "packed": packed}, device=dev,
+                                      graphed=False)
         torch.cuda.synchronize()
         runs[label].append(SLICE["n"] * SLICE["steps"]
                            / (time.perf_counter() - t0))

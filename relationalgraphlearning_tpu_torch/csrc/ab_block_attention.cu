@@ -589,8 +589,8 @@ int launch(const void* q, const void* xg, const int32_t* mbits, void* out,
            int nb, int B, int C, int d, cudaStream_t stream) {
   auto kern = ab_block_attention_kernel<T, DP, DIV_AFTER, INTMASK>;
   constexpr size_t smem = Tiles<T, DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      reserve_smem(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nb, (B + kCtaRows - 1) / kCtaRows);
   kern<<<grid, kWarpsPerCta * 32, smem, stream>>>(

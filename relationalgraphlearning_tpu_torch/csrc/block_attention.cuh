@@ -295,13 +295,13 @@ __device__ __forceinline__ void block_rows(
 
 // Launch `kern` (a kernel calling block_rows with L lanes a row) over nb
 // blocks of B rows on `stream`; returns the CUDA error code (0 = launched).
-// Above the card's shared memory, cudaFuncSetAttribute refuses and that
-// error is returned.
+// Above the card's shared memory, reserve_smem's cudaFuncSetAttribute
+// refuses and that error is returned.
 template <typename Kernel, typename... Args>
 int launch_rows(Kernel kern, int L, int nb, int B, size_t smem,
                 cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      reserve_smem(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(nb, B / kRowsPerCta);
   kern<<<grid, kRowsPerCta * L, smem, stream>>>(args...);

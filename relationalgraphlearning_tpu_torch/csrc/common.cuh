@@ -1,12 +1,41 @@
-// Helpers shared by the kernels of csrc/: warp reductions and the error
-// string every library exports. Each .cu builds into a library of its own,
-// so the one definition below lands once in each.
+// Helpers shared by the kernels of csrc/: warp reductions, the launch's
+// shared-memory reservation and the error string every library exports. Each
+// .cu builds into a library of its own, so the one definition below lands
+// once in each.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <unordered_map>
+
 namespace rgl {
+
+// Let `kern` launch with `smem` bytes of dynamic shared memory. Above the
+// 48 KB every kernel may take, cudaFuncSetAttribute raises the kernel's limit,
+// once per kernel and size: the largest size granted so far is kept, so a
+// launch at that size or below makes no call (nor does one inside a CUDA graph
+// capture after a warm-up). A size above the card's shared memory is refused
+// there; the error is returned and cleared, so that the next launch's
+// cudaGetLastError does not report it. The limits are kept per kernel, not per
+// device: one card a process.
+inline cudaError_t reserve_smem(const void* kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  static std::mutex mu;
+  static std::unordered_map<const void*, size_t> granted;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = granted[kern];
+  if (smem <= have) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  have = smem;
+  return cudaSuccess;
+}
 
 constexpr int kWarps = 8;   // warps of a CTA
 constexpr int kMaxF = 4;    // features per lane: d, dv <= 128

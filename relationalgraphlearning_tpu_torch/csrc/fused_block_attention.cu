@@ -356,13 +356,18 @@ int fba_dense_launch(const float* q, const float* xg, const float* vg,
   if (B % 32 != 0 || C < 1 || d < 1 || d > 32 * kMaxF || dv < 1 ||
       dv > 32 * kMaxF)
     return (int)cudaErrorInvalidValue;
-  // 8 warps a CTA where their rows' words and scores fit, else fewer
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
+  // 8 warps a CTA where their rows' words and scores fit, else fewer. The
+  // card's opt-in limit is read at the first launch (one card a process).
+  static int optin = 0;
+  if (optin == 0) {
+    int dev = 0, got = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &got, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    optin = got;
+  }
   const size_t max_smem = (size_t)optin;
   int warps = kWarps;
   while (warps > 1 && dense_smem_bytes(C, warps) > max_smem) warps /= 2;
@@ -370,8 +375,8 @@ int fba_dense_launch(const float* q, const float* xg, const float* vg,
   if (smem > max_smem) return (int)cudaErrorInvalidValue;
   auto kern = (d > dv ? d : dv) <= 64 ? dense_mask_attention_kernel<1>
                                       : dense_mask_attention_kernel<2>;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const cudaError_t err =
+      reserve_smem(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = nb * B, pairs = rows / 2;
   kern<<<(pairs + warps - 1) / warps, warps * 32, smem,

@@ -86,16 +86,19 @@ class SparseRGL(nn.Module):
                 block_emask: Optional[Tensor] = None) -> Tensor:
         """states [n, 5], cols [n, K], mask [n, K] → embeddings [n, X_dim].
 
-        A precomputed ``block_emask`` must already hold any validity mask
-        (``block_masks(cols, cand, mask)``); passing both raises, as in the
-        reference.
+        On the block backend a precomputed ``block_emask`` must already hold
+        any validity mask (``block_masks(cols, cand, mask)``); passing both
+        raises there. The gather and pallas backends read ``mask`` and never
+        the emask, so they take both. The reference raises on both for
+        every backend (``models/sparse_rgl.py:119-124`` of the JAX package).
         """
-        if block_emask is not None and mask is not None:
+        if (self.backend == "block" and block_emask is not None
+                and mask is not None):
             raise ValueError(
-                "pass EITHER a precomputed block_emask (with the validity "
-                "mask baked in via block_masks(cols, cand, mask)) OR a "
-                "per-call mask — a mask beside a precomputed emask would be "
-                "ignored.")
+                "backend='block': pass EITHER a precomputed block_emask "
+                "(with the validity mask baked in via block_masks(cols, "
+                "cand, mask)) OR a per-call mask — a mask beside a "
+                "precomputed emask would be ignored.")
         H = self.w_h(states)
         if (self.backend == "block" and block_emask is None
                 and block_cand is not None):

@@ -27,7 +27,6 @@ from relationalgraphlearning_tpu_torch.ops import _build, sparse
 
 SOURCE = _build.CSRC / "fused_gather_attention.cu"
 _MAX_FEATURES = 128         # kMaxF * 32 in the CUDA source
-_MAX_K = 1024               # 8 warps x K scores stay inside 48 KB
 
 _lib = None
 # The last ``cols`` proven in range, with its version: a graph is reused
@@ -40,7 +39,7 @@ def _library():
     if _lib is None:
         lib = _build.load(SOURCE)
         lib.fga_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.fga_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -94,15 +93,18 @@ def fused_gather_attention(q: Tensor, x: Tensor, v: Tensor, cols: Tensor,
                          f"{tuple(cols.shape)}")
     if not (1 <= d <= _MAX_FEATURES and 1 <= dv <= _MAX_FEATURES):
         raise ValueError(f"d={d}, dv={dv}: the kernel takes 1..128")
-    if not 1 <= K <= _MAX_K:
-        raise ValueError(f"K={K}: the kernel takes 1..{_MAX_K} neighbours")
+    if K < 1:
+        raise ValueError(f"K={K}: the kernel takes at least one neighbour")
+    # keys are values (both main paths pass one table): each neighbour row
+    # is then read once, for its score and for its share of the output
+    shared = x.data_ptr() == v.data_ptr() and x.shape == v.shape
     out = torch.empty((nq, dv), dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.fga_launch(
             q.data_ptr(), x.data_ptr(), v.data_ptr(), cols.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), nq, K,
-            d, dv, torch.cuda.current_stream().cuda_stream)
+            d, dv, int(shared), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"fused_gather_attention (K={K}, d={d})")
     fused_gather_attention.launches += 1
     return out

@@ -22,14 +22,19 @@ l2-normalisation (h / max(‖h‖, 1e-6)):
 The unshifted softmax needs |q·x| ≤ 1, which unit rows give: the seed
 features are row-normalised, and every route's output is. The block and
 chunk routes equal the gather chain when their coverage is 1. Timing is the
-caller's.
+caller's: ``run`` is the eager loop, what a Python caller pays a launch at a
+time; ``runner`` captures the ``inner`` applications as one CUDA graph on the
+card, the counterpart of the reference's jitted scan.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 from torch import Tensor
 
+from relationalgraphlearning_tpu_torch.captured import Graphed
 from relationalgraphlearning_tpu_torch.ops import block_graph, sparse
 from relationalgraphlearning_tpu_torch.ops.fused_block import (
     fused_block_attention_packed_shared, pack_emask)
@@ -103,6 +108,20 @@ def run(prep: dict, h: Tensor, inner: int) -> Tensor:
     for _ in range(inner):
         h = apply(prep, h)
     return h
+
+
+def runner(prep: dict, h0: Tensor, inner: int,
+           graphed: Optional[bool] = None) -> Callable[[Tensor], Tensor]:
+    """f(h) → h after ``inner`` applications of the route, for features of
+    h0's shape. ``graphed`` (default: whether h0 is on the card) captures
+    the ``inner`` applications once as one CUDA graph (``captured.Graphed``,
+    whose ``launches`` gives the kernel launches one call holds; CPU
+    tensors raise); ``graphed=False`` is the eager loop ``run``."""
+    if graphed is None:
+        graphed = h0.is_cuda
+    if graphed:
+        return Graphed(lambda h: run(prep, h, inner), h0)
+    return lambda h: run(prep, h, inner)
 
 
 def relation_chain(h0: Tensor, cols: Tensor, route: str, inner: int = 100,

@@ -7,13 +7,18 @@ frozen, a tail gather, the chunked fetch) each run a loop-carried chain of
 ``inner`` applications over the relation chain's graph (n=8192, K=16, d=64,
 B=256, C=544). Back-to-back runs of one program drift, so the variants run
 in turns inside one process, many rounds, and each reports its median and
-IQR: drift hits every variant alike.
+IQR: drift hits every variant alike. As the reference times one jitted scan
+a chain, on the card each variant's chain is captured once as a CUDA graph
+(``captured.Graphed``) and its timed runs replay it; eager runs of the same
+chain, what a Python caller pays a launch at a time, are timed in the same
+turns.
 
     python -m relationalgraphlearning_tpu_torch.tools.ab_kernel \\
         [--rounds 7] [--reps 30] [--B 256] [--C 544] [--inner 100]
 
-prints the chunked fetch's coverage, then one JSON line per variant. Every
-variant but ``chunkfetch_f32`` runs kernel #6 (``ops/ab_block.py``);
+prints the chunked fetch's coverage, then one JSON line per variant, with
+the graphed and the eager Gedges/s. Every variant but ``chunkfetch_f32``
+runs kernel #6 (``ops/ab_block.py``);
 ``chunkfetch_f32`` runs kernel #4 (``ops/fused_chunk.py``). The gather of
 each iteration's window is ``torch`` indexing outside the kernel, as the
 reference leaves it to XLA outside its kernel.
@@ -31,6 +36,7 @@ import torch
 from torch import Tensor
 
 from relationalgraphlearning_tpu_torch import relation_chain as rc
+from relationalgraphlearning_tpu_torch.captured import Graphed
 from relationalgraphlearning_tpu_torch.ops import ab_block, block_graph
 from relationalgraphlearning_tpu_torch.ops import fused_chunk
 from relationalgraphlearning_tpu_torch.ops.fused_block import pack_emask
@@ -122,23 +128,44 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _seconds_a_call(fn, reps: int, device) -> float:
+    """Wall seconds a call of ``fn``: ``reps`` calls between synchronises,
+    as the reference's ``_timeit`` amortises its dispatch."""
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(device)
+    return (time.perf_counter() - t0) / reps
+
+
 def run(rounds: int = 7, reps: int = 30, B: int = 256, C: int = 544,
         inner: int = 100, device="cuda", n: int = N,
-        finals: dict | None = None) -> list:
+        finals: dict | None = None, graphed: bool | None = None) -> list:
     """Warm every variant up, then time them in turns, ``rounds`` times
     ``reps`` chain runs each with a synchronise after each variant's reps.
 
+    ``graphed`` (default: on the card) captures each variant's chain once as
+    a CUDA graph after its checked eager run; each turn then times ``reps``
+    replays, then ``reps`` eager runs. CPU tensors run eagerly only.
+
     Returns the chunked fetch's record, then one record a variant: its
-    median and best Gedges/s (n·K·inner edges a chain run), the IQR of its
-    rounds in % of the median, the window's coverage, and ``launches``, the
-    kernel launches of its first chain run (counts zeroed before it).
-    ``finals``, if given, receives ``graph``, the (cols, cand, coverage,
-    mbits, h0) that every variant ran on, and ``h``, each variant's h after
-    its first chain run.
+    median and best Gedges/s (n·K·inner edges a chain run) over the timed
+    rounds (the replays when graphed, else the eager runs), the IQR of those
+    rounds in % of the median, the eager rounds' median ``gedges_s_eager``,
+    the window's coverage, ``launches``, the kernel launches of its first
+    chain run (counts zeroed before it), and, when graphed,
+    ``graph_launches``, the kernel launches one replay holds, and
+    ``replay_err``, the largest |replay − first run| on the same inputs
+    (None without a graph). ``finals``, if given, receives ``graph``, the
+    (cols, cand, coverage, mbits, h0) that every variant ran on, and ``h``,
+    each variant's h after its first chain run.
     """
+    if graphed is None:
+        graphed = torch.device(device).type == "cuda"
     cols, cand, cov, mbits, h0 = graph(n, K, D, B, C, device)
     table, chunk = variants(cols, B, C, inner)
-    inputs, launches, outs = {}, {}, {}
+    inputs, launches, outs, graphs, extra = {}, {}, {}, {}, {}
     for name, (f, dtype) in table.items():
         inputs[name] = h0.to(dtype)
         _sync(device)
@@ -149,16 +176,27 @@ def run(rounds: int = 7, reps: int = 30, B: int = 256, C: int = 544,
         launches[name] = {**ab_block.launch_counts(),
                           **fused_chunk.launch_counts()}
         outs[name] = out
+        extra[name] = dict(graph_launches=None, replay_err=None)
+        if graphed:
+            g = graphs[name] = Graphed(f, inputs[name], cand, mbits)
+            replay = g(inputs[name], cand, mbits)
+            extra[name] = dict(
+                graph_launches={k: g.launches[k] for k in launches[name]},
+                replay_err=float((replay.float() - out.float()).abs().max()))
     if finals is not None:
         finals.update(graph=(cols, cand, cov, mbits, h0), h=outs)
     times = {name: [] for name in table}
+    eager = {name: [] for name in table}
     for _ in range(rounds):
         for name, (f, _) in table.items():
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                f(inputs[name], cand, mbits)
-            _sync(device)
-            times[name].append((time.perf_counter() - t0) / reps)
+            args = (inputs[name], cand, mbits)
+            if graphed:
+                times[name].append(_seconds_a_call(
+                    lambda: graphs[name](*args), reps, device))
+            eager[name].append(_seconds_a_call(lambda: f(*args), reps,
+                                               device))
+    if not graphed:
+        times = eager
     records = [chunk]
     for name, ts in times.items():
         med, srt = statistics.median(ts), sorted(ts)
@@ -168,7 +206,9 @@ def run(rounds: int = 7, reps: int = 30, B: int = 256, C: int = 544,
             # device, the median the sustained number
             gedges_s_best=n * K * inner / srt[0] / 1e9,
             iqr_pct=100 * (srt[len(ts) * 3 // 4] - srt[len(ts) // 4]) / med,
-            coverage=float(cov), launches=launches[name]))
+            gedges_s_eager=n * K * inner / statistics.median(eager[name])
+            / 1e9, graphed=graphed, coverage=float(cov),
+            launches=launches[name], **extra[name]))
     return records
 
 

@@ -311,6 +311,27 @@ def test_run_on_cpu_gives_one_record_a_variant():
     assert all(r["coverage"] == float(cov) for r in records[1:])
     assert mbits.shape == (N // 256, 256 // 32, 544)
     assert tab.launch_counts() == {"ab_block_attention": 0}
+    # no graph on the CPU: the timed rounds are the eager ones
+    for r in records[1:]:
+        assert r["graphed"] is False
+        assert r["graph_launches"] is None and r["replay_err"] is None
+        assert r["gedges_s_eager"] == r["gedges_s"]
+
+
+def test_run_on_cpu_is_each_variants_eager_chain():
+    """``graphed=None`` runs every variant eagerly on CPU tensors: each
+    final h is its chain called directly, bit for bit; ``graphed=True``
+    raises there."""
+    finals = {}
+    tak.run(rounds=1, reps=1, inner=2, device="cpu", n=N, finals=finals)
+    cols, cand, _, mbits, h0 = finals["graph"]
+    table, _ = tak.variants(cols, inner=2)
+    for name, (f, dtype) in table.items():
+        torch.testing.assert_close(finals["h"][name], f(h0.to(dtype), cand,
+                                                        mbits),
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tak.run(rounds=1, reps=1, inner=1, device="cpu", n=N, graphed=True)
 
 
 def test_main_needs_a_card():

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card (#1-#7): held against their plain PyTorch
 versions, their wrappers' checks, and their launch counts on the rollout and
-in the A/B harness's chain.
+in the A/B harness's chain; and the captured CUDA graphs of the chain, the
+harness and both rollouts, each held to its eager run.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -17,6 +18,8 @@ sums taken in another order.
 import pytest
 import torch
 
+from relationalgraphlearning_tpu_torch import relation_chain as trc
+from relationalgraphlearning_tpu_torch.envs import mega_crowd as tmc
 from relationalgraphlearning_tpu_torch.envs.mega_crowd import (
     mega_crowd_rollout)
 from relationalgraphlearning_tpu_torch.ops import _build as tbuild
@@ -164,10 +167,11 @@ def test_cuda_kernel_row_lanes(dev):
 
 
 def test_cuda_rollout_counts_two_launches_a_step(dev):
+    # the eager run: a graph's launches count once, at its capture
     tfb.reset_launch_counts()
     (pos, vel), vals, cov = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="block", packed=True, block_B=256,
-        block_C=576, rebuild_every=2, device=dev)
+        block_C=576, rebuild_every=2, device=dev, graphed=False)
     assert tfb.launch_counts()["fused_block_attention_packed_shared"] == 8
     assert float(cov) == 1.0 and torch.isfinite(vals).all()
     (pc, vc), valc, _ = mega_crowd_rollout(
@@ -223,6 +227,191 @@ def test_cuda_gather_wrapper_rejects_what_the_kernel_does_not_take(dev):
         tfg.fused_gather_attention(q, x.cpu(), v, cols)
     with pytest.raises(ValueError, match="contiguous"):
         tfg.fused_gather_attention(q, x, v.t().contiguous().t(), cols)
+
+
+# Kernel #3's shapes: K across the batches of 8 edges and the chunks of 32
+# ids (1, 7, 16, 17, 33, 64); widths of every row shape (8 lanes up to 32
+# floats, 16 up to 64, 32 up to 128) with and without 16-B rows.
+GATHER_KS = (1, 7, 16, 17, 33, 64)
+GATHER_WIDTHS = (1, 3, 4, 32, 36, 64, 100, 128)
+
+
+def _gather_case(dev, K, d, dv, n=301, seed=20):
+    """n = 301 rows: no multiple of a CTA's 16, 8 or 4 rows. Rows 0-3 are
+    fully masked in the mask; row 4 repeats one neighbour K times."""
+    g = torch.Generator().manual_seed(seed + K + d + dv)
+    cols = tsp.knn_graph(torch.rand(n, 2, generator=g) * 30.0, K)
+    cols[4] = cols[4, 0]
+    if K > 1:
+        cols[5:, 1] = cols[5:, 0]               # a duplicate neighbour
+    q, x = torch.randn(n, d, generator=g), torch.randn(n, d, generator=g)
+    v = torch.randn(n, dv, generator=g)
+    mask = torch.rand(n, K, generator=g) > 0.3
+    mask[:4] = False
+    return [t.to(dev) for t in (q, x, v, cols, mask)]
+
+
+def _gather_close(q, x, v, cols, mask):
+    got = tfg.fused_gather_attention(q, x, v, cols, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, tfg.fused_gather_attention_plain(q, x, v, cols, mask), **TOL)
+    return got
+
+
+@pytest.mark.parametrize("d", GATHER_WIDTHS)
+@pytest.mark.parametrize("K", GATHER_KS)
+def test_cuda_gather_kernel_keys_are_values(dev, K, d):
+    # x is v: each neighbour row read once, for its score and its share
+    q, x, _, cols, mask = _gather_case(dev, K, d, d)
+    _gather_close(q, x, x, cols, None)
+    got = _gather_close(q, x, x, cols, mask)
+    # fully masked rows: the uniform average of v over their cols
+    torch.testing.assert_close(got[:4], x[cols[:4]].mean(1), **TOL)
+
+
+@pytest.mark.parametrize("K", (7, 17, 64))
+@pytest.mark.parametrize("d,dv", [(1, 3), (3, 100), (4, 36), (32, 64),
+                                  (36, 1), (64, 128), (100, 4), (128, 32)])
+def test_cuda_gather_kernel_separate_values(dev, K, d, dv):
+    # x != v, dv != d: the values load in batches beside the keys
+    q, x, v, cols, mask = _gather_case(dev, K, d, dv)
+    _gather_close(q, x, v, cols, None)
+    got = _gather_close(q, x, v, cols, mask)
+    torch.testing.assert_close(got[:4], v[cols[:4]].mean(1), **TOL)
+
+
+@pytest.mark.parametrize("d", (32, 64, 128))
+def test_cuda_gather_kernel_unaligned_rows(dev, d):
+    # a storage offset of one float breaks the 16-B alignment of every row:
+    # the kernel reads them with plain loads
+    n, K = 301, 16
+    q, x, v, cols, mask = _gather_case(dev, K, d, d)
+    flat = torch.empty(3 * n * d + 1, device=dev)
+    qo, xo, vo = (flat[1 + k * n * d:1 + (k + 1) * n * d].view(n, d)
+                  for k in range(3))
+    for dst, src in ((qo, q), (xo, x), (vo, v)):
+        dst.copy_(src)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    for args in ((qo, xo, xo, cols, mask), (qo, xo, vo, cols, None)):
+        _gather_close(*args)
+
+
+def test_cuda_gather_kernel_large_scores_against_float64(dev):
+    # scores of order 1e3-1e4, the layer-1 scale: integer features make
+    # every score exact in float32 in any summation order, so the kernel's
+    # online softmax (a running max rescaling acc and den) is held against
+    # the plain version in float64
+    n, K, d = 1024, 16, 32
+    g = torch.Generator().manual_seed(21)
+    cols = tsp.knn_graph(torch.rand(n, 2, generator=g) * 30.0, K)
+    q = torch.randint(-30, 31, (n, d), generator=g).float()
+    x = torch.randint(-30, 31, (n, d), generator=g).float()
+    v = torch.randn(n, 48, generator=g)
+    mask = torch.rand(n, K, generator=g) > 0.2
+    mask[:4] = False
+    s = (q[:, None] * x[cols]).sum(-1).abs()
+    assert float(s.median()) > 1e3 and float(s.max()) > 5e3
+    qd, xd, cd = q.to(dev), x.to(dev), cols.to(dev)
+    for vv, vd in ((x, xd), (v, v.to(dev))):
+        for m in (None, mask):
+            want = tfg.fused_gather_attention_plain(
+                q.double(), x.double(), vv.double(), cols, m)
+            got = tfg.fused_gather_attention(
+                qd, xd, vd, cd, None if m is None else m.to(dev))
+            torch.testing.assert_close(got.double().cpu(), want, **TOL)
+
+
+# ------------------------------------------- the captured CUDA graphs
+def _replay_equals_eager(replayed, eager):
+    # the same kernels in the same order: the same bits
+    torch.testing.assert_close(replayed, eager, rtol=0, atol=0)
+
+
+CHAIN_ROUTES = (("gather", 64, None),
+                ("gather_kernel", 64, "fused_gather_attention"),
+                ("block", 64, "fused_block_attention_packed_shared"),
+                ("chunk", 64, "chunk_block_attention"),
+                ("chunk_d32", 32, "chunk_block_attention"))
+
+
+@pytest.mark.parametrize("route,d,kernel", CHAIN_ROUTES)
+def test_cuda_chain_graph_replays_its_eager_run(dev, route, d, kernel):
+    inner = 5
+    cols = trc.crowd_graph(2048, 16, side=50.0, seed=3, device=dev)
+    prep = trc.prepare(route, cols, 256, 544)
+    h0 = trc.seed_features(2048, d, seed=4, device=dev)
+    f = trc.runner(prep, h0, inner)
+    want = {k: 0 for k in f.launches}
+    if kernel:
+        want[kernel] = inner
+    assert f.launches == want
+    eager = trc.run(prep, h0, inner)
+    _replay_equals_eager(f(h0), eager)
+    # new inputs go through the static buffers
+    h1 = trc.seed_features(2048, d, seed=5, device=dev)
+    _replay_equals_eager(f(h1).clone(), trc.run(prep, h1, inner))
+    with pytest.raises(ValueError, match="captured on"):
+        f(h1[:1024])
+
+
+def test_cuda_harness_graphs_replay_their_eager_runs(dev):
+    records = tak.run(rounds=1, reps=1, inner=4, device=dev, n=2048)
+    for rec in records[1:]:
+        kernel = ("chunk_block_attention" if rec["variant"] ==
+                  "chunkfetch_f32" else "ab_block_attention")
+        want = {"ab_block_attention": 0, "chunk_block_attention": 0,
+                kernel: 4}
+        assert rec["graphed"] is True
+        assert rec["launches"] == rec["graph_launches"] == want
+        assert rec["replay_err"] == 0.0
+        assert rec["gedges_s"] > 0 and rec["gedges_s_eager"] > 0
+
+
+@pytest.mark.parametrize("backend,packed,kernel", [
+    ("block", True, "fused_block_attention_packed_shared"),
+    ("pallas", False, "fused_gather_attention")])
+def test_cuda_rollout_graph_refreshes_its_buffers(dev, monkeypatch, backend,
+                                                  packed, kernel):
+    """One runner, two crowds of two chunks each: the graph captured on the
+    first chunk replays every later one, on other rebuilt graphs, and equals
+    the eager runner; kernel #3's ids are proven on each rebuilt graph."""
+    rebuilt, checked = [], []
+    real_rebuild, real_check = tmc.rebuild, tfg.check_ids
+
+    def rebuild(*args):
+        out = real_rebuild(*args)
+        rebuilt.append(out[2])
+        return out
+
+    def check_ids(cols, n):
+        checked.append(cols)
+        real_check(cols, n)
+
+    monkeypatch.setattr(tmc, "rebuild", rebuild)
+    monkeypatch.setattr(tfg, "check_ids", check_ids)
+    kw = dict(K=10, backend=backend, block_B=256, block_C=576,
+              rebuild_every=2, packed=packed)
+    net = tmc.MegaCrowdRollout(**kw, device=dev).net
+    graphed = tmc.MegaCrowdRollout(**kw, net=net, device=dev)
+    eager = tmc.MegaCrowdRollout(**kw, net=net, device=dev, graphed=False)
+    assert graphed.graphed and not eager.graphed
+    chunks = []
+    for seed in (0, 1):
+        pos0 = tmc.initial_crowd(1024, seed=seed, device=dev)
+        rebuilt.clear()
+        (p, v), vals, cov = graphed(pos0, 4)
+        chunks += rebuilt
+        (pe, ve), vale, cove = eager(pos0, 4)
+        for got, want in ((p, pe), (v, ve), (vals, vale)):
+            _replay_equals_eager(got, want)
+        assert float(cov) == float(cove) == 1.0
+    # four chunks, the second crowd's on other graphs than the first's
+    assert len(chunks) == 4 and not torch.equal(chunks[1], chunks[2])
+    if backend == "pallas":
+        assert all(any(c is cols for c in checked) for cols in chunks)
+    assert graphed.graph.launches == {
+        **{k: 0 for k in graphed.graph.launches}, kernel: 4}
 
 
 # ----------------------------------------- kernels #4/#7, chunked fetch
@@ -397,7 +586,7 @@ def test_cuda_pallas_rollout_counts_two_launches_a_step(dev):
     tfg.reset_launch_counts()
     (pos, vel), vals, cov = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="pallas", rebuild_every=2,
-        device=dev)
+        device=dev, graphed=False)
     assert tfg.launch_counts()["fused_gather_attention"] == 8
     assert torch.isfinite(vals).all()
     (pc, vc), valc, _ = mega_crowd_rollout(

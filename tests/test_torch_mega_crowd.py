@@ -26,8 +26,11 @@ from relationalgraphlearning_tpu.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.configs.base import GCNConfig as TGCN
 from relationalgraphlearning_tpu_torch.convert import (
     sparse_value_net_from_flax)
+from relationalgraphlearning_tpu_torch.envs import mega_crowd as tmc
 from relationalgraphlearning_tpu_torch.envs.mega_crowd import (
     mega_crowd_rollout)
+from relationalgraphlearning_tpu_torch.envs.orca import (
+    ORCAParams as TORCAParams, centralized_orca_step_knn as torca_knn)
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
     SparseValueNet as TNet)
 from relationalgraphlearning_tpu_torch.ops import fused_block
@@ -132,3 +135,61 @@ def test_rollout_seeded_defaults_are_reproducible():
 def test_rollout_rejects_ragged_chunks():
     with pytest.raises(ValueError, match="multiple"):
         mega_crowd_rollout(n=64, steps=3, rebuild_every=2, device="cpu")
+
+
+def _eager_loop(pos, K, steps, backend, block_B, block_C, R, packed, net):
+    """The rollout as the port ran it before ``MegaCrowdRollout``: one
+    Python loop over the chunks and their steps, each step's mean value
+    stacked at the end."""
+    n = pos.shape[0]
+    goals, vel = -pos, torch.zeros((n, 2))
+    rad, vmax = torch.full((n,), 0.3), torch.ones((n,))
+    act = torch.ones((n,), dtype=torch.bool)
+    values, covs = [], []
+    with torch.no_grad():
+        for _ in range(steps // R):
+            pos, (vel, goals, rad, vmax, act), cols_gnn, cols_orca, cand, \
+                em, cov = tmc.rebuild(pos, (vel, goals, rad, vmax, act), K,
+                                      backend, block_B, block_C, packed)
+            covs.append(cov)
+            for _ in range(R):
+                to = goals - pos
+                d = torch.linalg.norm(to, dim=-1, keepdim=True)
+                pref = torch.where(d > 1e-3, to / torch.clamp(d, min=1e-9),
+                                   0.0)
+                vel = torca_knn(pos, vel, rad, pref, vmax, act, TORCAParams(),
+                                K, cols=cols_orca)
+                pos = pos + vel * tmc.DT
+                states = torch.cat([pos, vel, rad[:, None]], dim=-1)
+                values.append(net(states, cols_gnn, block_cand=cand,
+                                  block_emask=em).mean())
+    return (pos, vel), torch.stack(values), torch.stack(covs).amin()
+
+
+@pytest.mark.parametrize("backend,packed", [("block", True),
+                                            ("pallas", False),
+                                            ("gather", False)])
+def test_runner_on_cpu_is_the_eager_loop(backend, packed):
+    """``MegaCrowdRollout`` with ``graphed=None`` captures on the card only:
+    on the CPU its chunks equal the former Python loop bit for bit, also
+    when one runner rolls two crowds; ``graphed=True`` raises there."""
+    kw = dict(K=6, backend=backend, block_B=64, block_C=256,
+              rebuild_every=2, packed=packed)
+    net = TNet(TGCN(), backend=backend,
+               generator=torch.Generator().manual_seed(2)).eval()
+    runner = tmc.MegaCrowdRollout(**kw, net=net, device="cpu")
+    assert runner.graphed is False
+    for seed in (0, 1):
+        pos0 = tmc.initial_crowd(256, seed=seed, device="cpu")
+        (p, v), vals, cov = runner(pos0, 4)
+        (pw, vw), valw, covw = _eager_loop(pos0, 6, 4, backend, 64, 256, 2,
+                                           packed, net)
+        for got, want in ((p, pw), (v, vw), (vals, valw), (cov, covw)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        (pm, vm), valm, _ = mega_crowd_rollout(n=256, steps=4, pos=pos0,
+                                               net=net, device="cpu", **kw)
+        torch.testing.assert_close(valm, valw, rtol=0, atol=0)
+        torch.testing.assert_close(pm, pw, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tmc.MegaCrowdRollout(**kw, net=net, device="cpu", graphed=True)(
+            tmc.initial_crowd(256, device="cpu"), 2)

@@ -101,3 +101,19 @@ def test_routes_agree_and_chain_is_seeded():
 def test_unknown_route_raises():
     with pytest.raises(ValueError, match="route"):
         trc.prepare("dense", torch.zeros(256, 4, dtype=torch.long))
+
+
+@pytest.mark.parametrize("route", list(trc.ROUTES))
+def test_runner_on_cpu_is_the_eager_loop(route):
+    """``runner`` with ``graphed=None`` captures on the card only: on CPU
+    tensors it is ``run``, bit for bit, and ``graphed=True`` raises."""
+    cols = trc.crowd_graph(1024, K, side=35.0, seed=6, device="cpu")
+    d = 32 if route == "chunk_d32" else 64
+    h0 = trc.seed_features(1024, d, seed=7, device="cpu")
+    prep = trc.prepare(route, cols, B, C)
+    f = trc.runner(prep, h0, 3)
+    torch.testing.assert_close(f(h0), trc.run(prep, h0, 3), rtol=0, atol=0)
+    torch.testing.assert_close(trc.runner(prep, h0, 3, graphed=False)(h0),
+                               trc.run(prep, h0, 3), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        trc.runner(prep, h0, 3, graphed=True)

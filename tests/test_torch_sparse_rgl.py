@@ -168,3 +168,32 @@ def test_block_backend_rejects_mask_beside_emask():
             mask=torch.ones(N, K, dtype=torch.bool),
             block_cand=torch.zeros(N // B, C, dtype=torch.long),
             block_emask=torch.zeros(N // B, B, C, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("backend", ["gather", "pallas"])
+def test_mask_beside_emask_is_taken_off_the_block_backend(backend):
+    """Only the block backend reads ``block_emask``, so only it refuses a
+    ``mask`` beside one. The gather and pallas backends take both and give
+    the result with ``mask`` alone, held against the JAX reference's net
+    with the mask. A difference from the reference, which raises on both
+    for every backend (``relationalgraphlearning_tpu/models/sparse_rgl.py:
+    119-124``, ADVICE r5 #3)."""
+    states, cols = _crowd(13)
+    mask = np.random.RandomState(14).rand(N, K) > 0.25
+    mask[:4] = False
+    jnet, params, tnet = _nets(backend, states, cols, 15)
+    want = jnet.apply(params, jnp.asarray(states), jnp.asarray(cols),
+                      jnp.asarray(mask))
+    tcols, tm = torch.from_numpy(cols).long(), torch.from_numpy(mask)
+    tcand, _ = tbg.block_window(tcols, B, C)
+    tem = tfb.pack_emask(tbg.block_masks(tcols, tcand))
+    with torch.no_grad():
+        both = tnet(torch.from_numpy(states), tcols, tm, block_cand=tcand,
+                    block_emask=tem)
+        alone = tnet(torch.from_numpy(states), tcols, tm)
+    torch.testing.assert_close(both, alone, rtol=0, atol=0)
+    np.testing.assert_allclose(both.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="EITHER"):
+        jnet.apply(params, jnp.asarray(states), jnp.asarray(cols),
+                   jnp.asarray(mask), block_cand=jnp.asarray(tcand.numpy()),
+                   block_emask=jnp.asarray(tem.numpy()))

@@ -70,7 +70,17 @@ Phases, each of which exits non-zero on failure:
    run, and each variant's final h against the plain gather chain (the
    frozen-table variants against the same chain on the plain version);
    Gedges/s graphed and eager, in the same turns.
-8. Print the ``kernels`` line, the card line and the last line.
+8. MP-RGL evaluation (slice 7): the committed checkpoints' 500 seeded test
+   cases through ``Explorer.run_cases`` on the card: ``mprl_td`` at its
+   d=2, w=2, the same weights at d=1 and at d=2, w=4, and
+   ``mp_unicycle_anneal`` at its d=2, w=8. Each runs eager and graphed (one
+   decision and one env step captured once, replayed 100 times), in turns.
+   Each run must hold success and collision within 0.010 and nav time
+   within 0.20 s of the committed ``eval_test*.json``, agree with the JAX
+   package's per-case outcomes (``checkpoints/<run>_test_reference.npz``)
+   in at least 485 of 500 cases, and its graphed run must equal its eager
+   run bit for bit; none of kernels #1-#7 may launch.
+9. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -88,8 +98,10 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from relationalgraphlearning_tpu_torch import captured
+from relationalgraphlearning_tpu_torch import captured, checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as rc
+from relationalgraphlearning_tpu_torch import types as T
+from relationalgraphlearning_tpu_torch.cli import test as eval_cli
 from relationalgraphlearning_tpu_torch.configs.base import GCNConfig
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
@@ -154,6 +166,23 @@ BF16_CHAIN_TOL = 2**-7
 # contracts it. Measured 1.95e-3 (one ulp of a value in [0.25, 0.5)) on an
 # NVIDIA H100; the limit is two such ulps.
 BF16_KERNEL_CHAIN_TOL = 2**-8
+# Phase 8: (run, model directory, planner overrides, committed record).
+MPRL_RUNS = (("mprl_td", "mprl_td", {}, "eval_test.json"),
+             ("mprl_td_d1", "mprl_td", {"planning_depth": 1},
+              "eval_test_d1.json"),
+             ("mprl_td_d2_w4", "mprl_td",
+              {"planning_depth": 2, "planning_width": 4},
+              "eval_test_d2_w4.json"),
+             ("mp_unicycle_anneal", "mp_unicycle_anneal", {},
+              "eval_test.json"))
+# Against the committed record: 0.010 is 5 cases of 500, about two binomial
+# standard deviations at p = 0.99; a nav time within one 0.25 s step. A
+# near-tie that flips one planning decision changes a trajectory, so
+# outcomes are held case by case to the JAX package's on most cases, not
+# all.
+MPRL_BOUNDS = dict(success_rate=0.010, collision_rate=0.010,
+                   nav_time=0.20)
+MPRL_MIN_AGREE = 485
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
 # the SXM part is the default.
@@ -1162,6 +1191,202 @@ def harness_phase(dev, report):
 
 
 # ------------------------------------------------------------- --profile
+# ------------------------------------------------------------------ phase 8
+def mprl_setup(model, overrides, dev):
+    """(config, env, policy with the exported weights, explorer) of
+    ``results/<model>`` with planner ``overrides``, as the port's CLI
+    builds them."""
+    config, _ = eval_cli.configure(str(ROOT / "results" / model),
+                                   **overrides)
+    return (config, *eval_cli.build(config, model, dev))
+
+
+def mprl_run(run, model, overrides, record, dev, order):
+    """One evaluated configuration's 500 cases, eager and graphed in
+    ``order``, and its checks. Returns its report."""
+    config, env, policy, explorer = mprl_setup(model, overrides, dev)
+    sim = config.env.sim
+    offset, cases = sim.test_seed_offset, range(sim.test_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    explorer.capture(explorer.initial_carry(offset, cases))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    finals, walls = {}, {}
+    for mode in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finals[mode] = explorer.rollout(offset, cases,
+                                        graphed=mode == "graphed")
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+    eager, graphed = finals["eager"], finals["graphed"]
+    for name, got, ref in zip(eager._fields, graphed, eager):
+        torch.testing.assert_close(
+            got, ref, **REPLAY_TOL,
+            msg=lambda m: f"{run}: graphed {name} vs eager: {m}")
+    for name in ("robot", "humans", "ep_return", "danger_dmin"):
+        if not bool(torch.isfinite(getattr(eager, name)).all()):
+            raise RuntimeError(f"{run}: non-finite {name}")
+    if eager.robot.shape != (sim.test_size, 9):
+        raise RuntimeError(f"{run}: robot states {tuple(eager.robot.shape)}")
+    stats = {k: float(v) for k, v in
+             zip(explorer.stats(eager)._fields, explorer.stats(eager))}
+    committed = json.loads((ROOT / "results" / model / record).read_text())
+    ref = checkpoints.load_test_reference(run)
+    outcome = eager.case_outcome.cpu().numpy()
+    agree = int((outcome == ref["outcome"]).sum())
+    both_succeed = (outcome == T.OUTCOME_REACH_GOAL) & (
+        ref["outcome"] == T.OUTCOME_REACH_GOAL)
+    same_steps = int((eager.step.cpu().numpy()[both_succeed]
+                      == ref["steps"][both_succeed]).sum())
+    delta = dict(success_rate=stats["success_rate"]
+                 - committed["success_rate"],
+                 collision_rate=stats["collision_rate"]
+                 - committed["collision_rate"],
+                 nav_time=stats["avg_nav_time"] - committed["nav_time"])
+    steps = sim.test_size * config.env.max_steps
+    out = dict(
+        run=run, model=model, overrides=overrides, cases=sim.test_size,
+        stats=stats, committed={k: committed[k] for k in (
+            "success_rate", "collision_rate", "timeout_rate", "nav_time",
+            "return", "danger_frequency", "avg_min_dist")},
+        delta=delta, outcome_agree=agree,
+        successes_both=int(both_succeed.sum()), same_steps=same_steps,
+        capture_s=capture_s, wall_s=walls["graphed"],
+        wall_s_eager=walls["eager"], order=list(order),
+        env_steps_per_s=steps / walls["graphed"],
+        env_steps_per_s_eager=steps / walls["eager"],
+        rgl_forwards_per_decision=policy.rgl_forwards_per_decision(),
+        rgl_forwards_per_step=policy.rgl_forwards_per_decision()
+        * sim.test_size)
+    print(f"mprl {run}: success {stats['success_rate']:.3f} "
+          f"[{committed['success_rate']:.3f}], collision "
+          f"{stats['collision_rate']:.3f} [{committed['collision_rate']:.3f}]"
+          f", timeout {stats['timeout_rate']:.3f} "
+          f"[{committed['timeout_rate']:.3f}], nav time "
+          f"{stats['avg_nav_time']:.4f} [{committed['nav_time']:.4f}] s, "
+          f"return {stats['avg_return']:.4f} [{committed['return']:.4f}], "
+          f"danger {stats['danger_frequency']:.4f} "
+          f"[{committed['danger_frequency']:.4f}], min dist "
+          f"{stats['avg_min_dist']:.4f} [{committed['avg_min_dist']:.4f}]; "
+          f"outcomes equal to the JAX package's in {agree}/{sim.test_size}, "
+          f"same steps in {same_steps}/{int(both_succeed.sum())} shared "
+          f"successes; capture {capture_s:.3f} s, graphed "
+          f"{walls['graphed']:.3f} s ({out['env_steps_per_s']:.0f} env-steps"
+          f"/s), eager {walls['eager']:.3f} s "
+          f"({out['env_steps_per_s_eager']:.0f}), "
+          f"{out['rgl_forwards_per_decision']} RGL forwards a decision, "
+          f"graphed == eager",
+          flush=True)
+    misses = [f"|d {k}| = {abs(v):.4f} > {MPRL_BOUNDS[k]}"
+              for k, v in delta.items() if abs(v) > MPRL_BOUNDS[k]]
+    if agree < MPRL_MIN_AGREE:
+        misses.append(f"{agree} outcomes equal < {MPRL_MIN_AGREE}")
+    if misses:
+        raise RuntimeError(f"{run}: {'; '.join(misses)}")
+    return out
+
+
+def mprl_phase(dev, report):
+    """The four evaluated configurations, each eager and graphed in turns
+    (E G, G E, ...). Kernel counts are zeroed before the phase and read
+    after it: this path launches none of #1-#7."""
+    precision = dict(
+        float32_matmul_precision=torch.get_float32_matmul_precision(),
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    print(f"mprl: {precision}", flush=True)
+    if precision != dict(float32_matmul_precision="highest",
+                         matmul_allow_tf32=False, cudnn_allow_tf32=False):
+        raise RuntimeError(f"float32 products must be exact: {precision}")
+    captured.reset_launch_counts()
+    runs = []
+    with torch.no_grad():
+        for i, (run, model, overrides, record) in enumerate(MPRL_RUNS):
+            order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
+            runs.append(mprl_run(run, model, overrides, record, dev, order))
+    launches = captured.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"the MP-RGL path launched kernels: {launches}")
+    report["mprl"] = dict(precision=precision, runs=runs, launches=launches)
+    return launches
+
+
+def mprl_profile_phase(dev, report, steps=10):
+    """Where one evaluation step of ``mprl_td`` (500 cases, d=2, w=2) goes:
+    host seconds of the decision (planner), the humans' ORCA step and the
+    reward (collision check), each closed by a synchronise, over ``steps``
+    eager steps; the profiler's device time by
+    kernel over one eager step and over one graph replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from relationalgraphlearning_tpu_torch.envs.reward import compute_reward
+
+    config, env, policy, explorer = mprl_setup("mprl_td", {}, dev)
+    carry = explorer.initial_carry(config.env.sim.test_seed_offset,
+                                   range(config.env.sim.test_size))
+    times = dict(planner=0.0, orca=0.0, reward=0.0)
+    with torch.no_grad():
+        explorer.eval_step(*carry)
+        for _ in range(steps):
+            states = carry.states
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            action = explorer._act(states)
+            torch.cuda.synchronize()
+            times["planner"] += time.perf_counter() - t
+            t = time.perf_counter()
+            human_v = env.human_velocities(states)
+            torch.cuda.synchronize()
+            times["orca"] += time.perf_counter() - t
+            t = time.perf_counter()
+            compute_reward(states.robot, T.observable(states.humans), human_v,
+                           action, (states.step + 1.0) * config.env.time_step,
+                           config.env)
+            torch.cuda.synchronize()
+            times["reward"] += time.perf_counter() - t
+            carry = type(carry)(*explorer.eval_step(*carry))
+        per_step = {k: v / steps for k, v in times.items()}
+
+        def traced(fn):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kernels = sorted(((ev.self_device_time_total, ev.count, ev.key)
+                              for ev in prof.key_averages()
+                              if ev.device_type == DeviceType.CUDA),
+                             reverse=True)
+            busy = sum(k[0] for k in kernels) / 1e6
+            return dict(wall_s=wall, device_busy_s=busy,
+                        device_idle_share=1 - busy / wall,
+                        kernel_launches=sum(k[1] for k in kernels),
+                        top=[dict(device_us=u, count=c, name=k)
+                             for u, c, k in kernels[:15]])
+
+        eager = traced(lambda: explorer.eval_step(*carry))
+        graph = explorer.capture(carry)
+        graph(*carry)
+        graphed = traced(lambda: graph(*carry))
+    report["mprl_profile"] = dict(host_s_per_step=per_step, eager=eager,
+                                  graphed=graphed)
+    print(f"mprl profile (mprl_td, 500 cases): host s a step with a sync "
+          f"after each part {per_step}; eager step wall {eager['wall_s']:.4f}"
+          f" s, device busy {eager['device_busy_s']:.4f} s (idle share "
+          f"{eager['device_idle_share']:.3f}, {eager['kernel_launches']} "
+          f"launches); graphed step wall {graphed['wall_s']:.4f} s, busy "
+          f"{graphed['device_busy_s']:.4f} s (idle share "
+          f"{graphed['device_idle_share']:.3f})", flush=True)
+    for row in eager["top"][:10]:
+        print(f"  {row['device_us'] / 1e3:10.3f} ms  x{row['count']:<6d} "
+              f"{row['name'][:90]}", flush=True)
+
+
 def profile_phase(dev, report):
     """Where one 8-step chunk of the slice's time goes: host time of each
     section with a synchronise after it, the chunk's wall time without those
@@ -1303,8 +1528,9 @@ def backend_phase(dev, report, rounds=6):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also break one rollout chunk's time down and time "
-                         "the rollout under each aggregation path")
+                    help="also break one rollout chunk's time down, time "
+                         "the rollout under each aggregation path and break "
+                         "one MP-RGL evaluation step down")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1343,6 +1569,7 @@ def main() -> int:
     chain_launches = chain_phase(dev, report)
     pallas_launches = pallas_phase(dev, report)
     harness_launches = harness_phase(dev, report)
+    mprl_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does)
     path_launches = {
         "fused_block_attention_packed_shared":
@@ -1364,6 +1591,7 @@ def main() -> int:
     if args.profile:
         profile_phase(dev, report)
         backend_phase(dev, report)
+        mprl_profile_phase(dev, report)
 
     report["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)

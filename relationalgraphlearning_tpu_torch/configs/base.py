@@ -9,8 +9,9 @@ two copies equal field by field.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
-import importlib.util
+import types
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -191,13 +192,47 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
+_JAX_PACKAGE = "relationalgraphlearning_tpu"
+_JAX_CONFIGS = _JAX_PACKAGE + ".configs.base"
+
+
+def _point_at_the_port(tree: ast.Module, path: str) -> ast.Module:
+    """Rewrite ``from relationalgraphlearning_tpu.configs.base import ...``
+    to this module; raise on any other import of the JAX package (importing
+    it would import JAX)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module == _JAX_CONFIGS \
+                and node.level == 0:
+            node.module = __name__
+            continue
+        if isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        for name in names:
+            if name.split(".")[0] == _JAX_PACKAGE:
+                raise ImportError(
+                    f"{path}:{node.lineno} imports {name}; a config file may "
+                    f"import only {_JAX_CONFIGS} of the JAX package")
+    return tree
+
+
 def load_config_module(path: str):
     """Load a Python config file by path; it must expose ``get_config() ->
     Config`` (or a module-level ``config``). Parity: train.py's
-    ``importlib.util.spec_from_file_location`` config loading."""
-    spec = importlib.util.spec_from_file_location("rgl_torch_user_config", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    ``importlib.util.spec_from_file_location`` config loading.
+
+    Config files written for the JAX package import
+    ``relationalgraphlearning_tpu.configs.base``, whose package imports JAX.
+    The source is parsed instead, that import is pointed at this module, and
+    the file is compiled and run as a module of its own."""
+    with open(path) as f:
+        tree = _point_at_the_port(ast.parse(f.read(), filename=path), path)
+    mod = types.ModuleType("rgl_torch_user_config")
+    mod.__file__ = path
+    exec(compile(tree, path, "exec"), mod.__dict__)
     if hasattr(mod, "get_config"):
         return mod.get_config()
     if hasattr(mod, "config"):

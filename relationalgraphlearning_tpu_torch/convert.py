@@ -1,7 +1,8 @@
 """Flax → torch weight bridge.
 
 A flax param tree arrives as nested dicts of numpy arrays (e.g.
-``jax.tree.map(np.asarray, params)``); the functions here return a torch
+``jax.tree.map(np.asarray, params)``, or ``tree_from_flat`` of a flat
+``.npz`` keyed by flax paths); the functions here return a torch
 ``state_dict``. A flax ``Dense.kernel`` is ``[in, out]`` and a torch
 ``Linear.weight`` is ``[out, in]``, so kernels are transposed.
 """
@@ -46,4 +47,60 @@ def sparse_value_net_from_flax(tree: Mapping) -> dict:
         _dense(f"graph_model.gcn_layers.{i - 1}", g[f"gcn_w{i}"], out)
         i += 1
     _mlp("value_network", p["value_network"], out)
+    return out
+
+
+def tree_from_flat(flat: Mapping) -> dict:
+    """{"params/value_network/dense_0/kernel": array, ...} -> the nested
+    dicts of the flax tree."""
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def _rgl(prefix: str, node: Mapping, out: dict) -> None:
+    """An RGL's params under ``prefix`` ("" for the module itself, else
+    its name with a trailing dot)."""
+    _mlp(f"{prefix}w_r", node["w_r"], out)
+    _mlp(f"{prefix}w_h", node["w_h"], out)
+    if "w_a" in node:
+        _dense(f"{prefix}w_a", node["w_a"], out)
+    if "w_c" in node:
+        _mlp(f"{prefix}w_c", node["w_c"], out)
+    i = 1
+    while f"gcn_w{i}" in node:
+        _dense(f"{prefix}gcn_layers.{i - 1}", node[f"gcn_w{i}"], out)
+        i += 1
+
+
+def rgl_from_flax(tree: Mapping) -> dict:
+    """``RGL`` params (``{"params": {...}}`` or the inner dict) -> the
+    ``state_dict`` of the port's ``RGL``."""
+    out: dict = {}
+    _rgl("", tree.get("params", tree), out)
+    return out
+
+
+def mprl_networks_from_flax(tree: Mapping) -> dict:
+    """``MPRLNetworks`` params -> the ``state_dict`` of the port's
+    ``MPRLNetworks``.
+
+    Names: ``value_graph_model`` and ``pred_graph_model`` (absent when the
+    graph model is shared or the predictor linear), each ``w_r``/``w_h``
+    (``dense_i``), ``w_a`` (or ``w_c``), ``gcn_w{i}``; ``value_network`` and
+    ``human_motion_predictor`` (``dense_i``).
+    """
+    p = tree.get("params", tree)
+    out: dict = {}
+    for name in ("value_graph_model", "pred_graph_model"):
+        if name in p:
+            _rgl(f"{name}.", p[name], out)
+    _mlp("value_network", p["value_network"], out)
+    if "human_motion_predictor" in p:
+        _mlp("human_motion_predictor", p["human_motion_predictor"], out)
     return out

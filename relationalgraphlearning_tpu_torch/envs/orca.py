@@ -247,16 +247,19 @@ def centralized_orca_step(positions: Tensor, velocities: Tensor,
                           params: ORCAParams) -> Tensor:
     """One synchronous ORCA update of n agents against all others.
 
-    positions/velocities/pref_vels [n, 2]; radii/max_speeds/active [n].
-    Inactive agents keep zero velocity and are invisible to others.
+    positions/velocities/pref_vels [..., n, 2]; radii/max_speeds/active
+    [..., n], with any leading (env) dimensions. Inactive agents keep zero
+    velocity and are invisible to others.
     """
-    n = positions.shape[0]
+    n = positions.shape[-2]
     eye = torch.eye(n, dtype=torch.bool, device=positions.device)
-    valid = active[None, :] & ~eye
+    valid = active[..., None, :] & ~eye
+    lead = positions.shape[:-2]
     new_v = orca_velocity(
         positions, velocities, radii, pref_vels, max_speeds,
-        positions[None].expand(n, n, 2), velocities[None].expand(n, n, 2),
-        radii[None].expand(n, n), valid, params)
+        positions[..., None, :, :].expand(*lead, n, n, 2),
+        velocities[..., None, :, :].expand(*lead, n, n, 2),
+        radii[..., None, :].expand(*lead, n, n), valid, params)
     return torch.where(active[..., None], new_v, torch.zeros_like(new_v))
 
 

@@ -1,7 +1,10 @@
 """The CUDA kernels on the card (#1-#7): held against their plain PyTorch
 versions, their wrappers' checks, and their launch counts on the rollout and
-in the A/B harness's chain; and the captured CUDA graphs of the chain, the
-harness and both rollouts, each held to its eager run.
+in the A/B harness's chain; the captured CUDA graphs of the chain, the
+harness and both rollouts, each held to its eager run; and the MP-RGL
+evaluation path (batched CrowdSim, planner, ``Explorer.run_cases``) on the
+card against the CPU, its captured step against its eager run, and 32 test
+cases against the JAX package's per-case records.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -15,10 +18,17 @@ since both sides round to bfloat16 with round-to-nearest-even from float32
 sums taken in another order.
 """
 
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
+from relationalgraphlearning_tpu_torch import checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as trc
+from relationalgraphlearning_tpu_torch import types as TT
+from relationalgraphlearning_tpu_torch.configs.base import load_config_module
+from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
 from relationalgraphlearning_tpu_torch.envs import mega_crowd as tmc
 from relationalgraphlearning_tpu_torch.envs.mega_crowd import (
     mega_crowd_rollout)
@@ -29,7 +39,11 @@ from relationalgraphlearning_tpu_torch.ops import fused_block as tfb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as tfc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as tfg
 from relationalgraphlearning_tpu_torch.ops import sparse as tsp
+from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
+    ModelPredictiveRLPolicy)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as tak
+from relationalgraphlearning_tpu_torch.training.explorer import (
+    EvalCarry, Explorer)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -699,3 +713,104 @@ def test_cuda_ab_harness_chain_counts_one_launch_an_iteration(dev):
     plain = tak.chain(lambda q, x, m: tab.ab_block_attention_plain(
         q, x, m, True), torch.float32, inner=3)(h, cand, bits)
     torch.testing.assert_close(got, plain, **TOL)
+
+
+# ------------------------------------------------------- MP-RGL evaluation
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _mprl(device, model="mprl_td"):
+    config = load_config_module(str(ROOT / "results" / model / "config.py"))
+    env = CrowdSim(config.env, device=device)
+    policy = ModelPredictiveRLPolicy(config.policy, config.env, device=device)
+    policy.load_flax(checkpoints.load_flax_tree(model))
+    return config, env, policy, Explorer(env, policy, config.policy.gamma)
+
+
+def _top2_gap(values):
+    top2 = values.sort(dim=-1).values[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+@pytest.mark.parametrize("model", ["mprl_td", "mp_unicycle_anneal"])
+def test_cuda_env_step_and_planner_match_the_cpu(dev, model):
+    """The same states (10 steps into 64 test cases) on the card and on the
+    CPU: one env step (robot and reward 1e-5, the humans' ORCA velocities
+    1e-4, dmin 1e-4·Δt, done and outcome exact, as against the reference),
+    the planner's action values (rtol 1e-5, atol 1e-5) and its choice
+    where the top two differ by more than 1e-4."""
+    config, env_c, pol_c, ex_c = _mprl("cpu", model)
+    _, env_g, pol_g, _ = _mprl(dev, model)
+    carry = ex_c.initial_carry(config.env.sim.test_seed_offset, range(64))
+    with torch.no_grad():
+        for _ in range(10):
+            carry = EvalCarry(*ex_c.eval_step(*carry))
+    states = carry.states
+    action = pol_c.action_space[torch.arange(64) % 81]
+    out_c = env_c.step(states, action)
+    out_g = env_g.step(type(states)(*(t.to(dev) for t in states)),
+                       action.to(dev))
+    dt = config.env.time_step
+    for name, atol in (("robot", 1e-5), ("humans", 1e-4)):
+        torch.testing.assert_close(getattr(out_g.state, name).cpu(),
+                                   getattr(out_c.state, name), rtol=0,
+                                   atol=atol)
+    torch.testing.assert_close(out_g.reward.cpu(), out_c.reward, rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(out_g.dmin.cpu(), out_c.dmin, rtol=0,
+                               atol=1e-4 * dt)
+    assert torch.equal(out_g.done.cpu(), out_c.done)
+    assert torch.equal(out_g.outcome.cpu(), out_c.outcome)
+
+    js_c = TT.JointState(states.robot, TT.observable(states.humans))
+    js_g = TT.JointState(*(t.to(dev) for t in js_c))
+    with torch.no_grad():
+        acts_c, rew_c, nr_c, nh_c = pol_c._clip_actions(*js_c, pol_c.width)
+        acts_g, rew_g, nr_g, nh_g = pol_g._clip_actions(*js_g, pol_g.width)
+        ret_c = rew_c + pol_c._gamma_bar(js_c.robot)[..., None] \
+            * pol_c.v_planning(nr_c, nh_c, pol_c.depth)
+        ret_g = rew_g + pol_g._gamma_bar(js_g.robot)[..., None] \
+            * pol_g.v_planning(nr_g, nh_g, pol_g.depth)
+    assert torch.equal(acts_g.cpu(), acts_c)
+    torch.testing.assert_close(ret_g.cpu(), ret_c, rtol=1e-5, atol=1e-5)
+    clear = _top2_gap(ret_c) > 1e-4
+    assert clear.sum() >= 8  # w=8's clipped returns lie close together
+    got = pol_g.predict(js_g).cpu()
+    assert torch.equal(got[clear], pol_c.predict(js_c)[clear])
+
+
+def test_cuda_captured_decision_and_step_replays_eager(dev):
+    """64 test cases for all 100 steps: the graphed rollout (one decision
+    and one env step captured, replayed) equals the eager loop bit for bit,
+    and the graph launches none of kernels #1-#7."""
+    config, _, _, ex = _mprl(dev)
+    offset = config.env.sim.test_seed_offset
+    with torch.no_grad():
+        eager = ex.rollout(offset, range(64), graphed=False)
+        graphed = ex.rollout(offset, range(64), graphed=True)
+        again = ex.rollout(offset, range(64))  # graphed, the graph reused
+    assert len(ex._graphs) == 1
+    (graph,) = ex._graphs.values()
+    assert not any(graph.launches.values())
+    for name, a, b, c in zip(eager._fields, eager, graphed, again):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
+        torch.testing.assert_close(c, a, rtol=0, atol=0, msg=name)
+    assert bool((eager.step > 0).all())
+
+
+def test_cuda_run_cases_matches_the_per_case_reference(dev):
+    """``run_cases`` on the card for the first 32 test cases against the JAX
+    package's per-case records: at most one of 32 may differ in its outcome
+    or, where both succeed, in its steps (a near-tie of one decision in
+    float32; the 500-case bound of chip_smoke.py is 15 outcomes)."""
+    config, _, _, ex = _mprl(dev)
+    with torch.no_grad():
+        final = ex.rollout(config.env.sim.test_seed_offset, range(32))
+    ref = {k: v[:32] for k, v in
+           checkpoints.load_test_reference("mprl_td").items()}
+    outcome = final.case_outcome.cpu().numpy()
+    both = (outcome == 1) & (ref["outcome"] == 1)
+    other_steps = both & (final.step.cpu().numpy() != ref["steps"])
+    assert ((outcome != ref["outcome"]) | other_steps).sum() <= 1
+    stats = ex.stats(final)
+    assert 0.9 <= float(stats.success_rate) <= 1.0

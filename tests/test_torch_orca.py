@@ -153,3 +153,17 @@ def test_knn_matches_allpairs_small():
     v_knn = torca.centralized_orca_step_knn(pos, vel, rad, pref, vmax, act,
                                             PARAMS_T, max_neighbors=n - 1)
     np.testing.assert_allclose(v_knn.numpy(), v_all.numpy(), atol=1e-5)
+
+
+def test_centralized_orca_step_takes_env_dims():
+    """[B, n, 2] crowds (the batched CrowdSim's ORCA step) against the
+    reference's step vmapped over envs."""
+    crowds = [_crowd(6, 4, 3.0 - 0.5 * b) for b in range(8)]
+    arrs = [np.stack(parts) for parts in zip(*crowds)]
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda *xs: jorca.centralized_orca_step(*xs, PARAMS_J)))(
+            *map(jnp.asarray, arrs)))
+    got = torca.centralized_orca_step(*map(torch.from_numpy, arrs),
+                                      PARAMS_T).numpy()
+    assert got.shape == (8, 6, 2)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)

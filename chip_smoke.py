@@ -80,7 +80,22 @@ Phases, each of which exits non-zero on failure:
    package's per-case outcomes (``checkpoints/<run>_test_reference.npz``)
    in at least 485 of 500 cases, and its graphed run must equal its eager
    run bit for bit; none of kernels #1-#7 may launch.
-9. Print the ``kernels`` line, the card line and the last line.
+9. MP-RGL training (slice 8) at the full width of
+   ``configs/icra_benchmark/mp_separate.py``: one captured SGD step held to
+   one eager step (and 8 to 8) from the same state and minibatch indices,
+   for the imitation optimizer (SGD, momentum 0.9) and the RL one (Adam),
+   parameters, target and optimizer state bit for bit; 64 captured
+   collection steps at B=16 held to 64 eager ones from the same carry and
+   draws, the ORCA demonstrator and MP-RGL at ε = 0.5, bit for bit; then
+   ``train_loop.train`` in its ``debug`` shrink (20 imitation episodes, 2
+   epochs, 40 RL episodes, validation and target update every 20), graphed
+   and eager in turns: the demonstrator gate passes, the losses are
+   finite, the parameters moved, ``il_model``, ``rl_model``,
+   ``rl_model_best`` and ``metrics.jsonl`` exist and ``rl_model`` restores
+   to the live state. SGD steps/s and collection env-steps/s, graphed and
+   eager in turns, the runs' walls and the capture seconds. None of
+   kernels #1-#7 may launch.
+10. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -89,6 +104,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -102,7 +119,8 @@ from relationalgraphlearning_tpu_torch import captured, checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch import types as T
 from relationalgraphlearning_tpu_torch.cli import test as eval_cli
-from relationalgraphlearning_tpu_torch.configs.base import GCNConfig
+from relationalgraphlearning_tpu_torch.configs.base import (
+    GCNConfig, load_config_module)
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
 from relationalgraphlearning_tpu_torch.ops import _build
@@ -113,6 +131,9 @@ from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as ak
+from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
+from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
+from relationalgraphlearning_tpu_torch.training import train_loop
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -1198,7 +1219,9 @@ def mprl_setup(model, overrides, dev):
     builds them."""
     config, _ = eval_cli.configure(str(ROOT / "results" / model),
                                    **overrides)
-    return (config, *eval_cli.build(config, model, dev))
+    model_dir = str(ROOT / "results" / model)
+    return (config, *eval_cli.build(config, eval_cli.weights_of(model_dir),
+                                    dev))
 
 
 def mprl_run(run, model, overrides, record, dev, order):
@@ -1525,6 +1548,218 @@ def backend_phase(dev, report, rounds=6):
           f"{medians}; all runs: {runs}", flush=True)
 
 
+# ------------------------------------------------------------------ phase 9
+TRAIN_CONFIG = ROOT / "configs" / "icra_benchmark" / "mp_separate.py"
+TRAIN = dict(B=16, K=64, sgd_timed=(400, 100), collect_timed=2)
+
+
+def _state_equal(what, a: dict, b: dict):
+    """Two trainer ``state_dict``s equal bit for bit."""
+    for part in ("params", "target_params"):
+        for k in a[part]:
+            torch.testing.assert_close(
+                b[part][k], a[part][k], **REPLAY_TOL,
+                msg=lambda m: f"{what}: {part}.{k}: {m}")
+    for i, (sa, sb) in enumerate(zip(a["optimizer_state"],
+                                     b["optimizer_state"])):
+        for k in sa:
+            torch.testing.assert_close(
+                sb[k], sa[k], **REPLAY_TOL,
+                msg=lambda m: f"{what}: optimizer state {i}.{k}: {m}")
+
+
+def _timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def sgd_check(art, buffer, gen, report):
+    """One and then 8 captured SGD steps against as many eager ones from
+    the same state and indices, for SGD (imitation) and Adam (RL); then
+    steps/s of each mode in turns."""
+    trainer, tc = art.trainer, load_config_module(str(TRAIN_CONFIG)).train
+    rows = []
+    for name, lr, use_td in (("sgd", tc.il_learning_rate, False),
+                             ("adam", tc.rl_learning_rate, True)):
+        trainer.set_learning_rate(lr, name)
+        row = dict(optimizer=name, use_td=use_td)
+        for n in (1, 8):
+            idx = rb.sample_indices(buffer, gen, (n, tc.batch_size))
+            before = trainer.state_dict()
+            trainer.optimize(buffer, idx, use_td, graphed=False)
+            eager = trainer.state_dict()
+            trainer.load_state(before)
+            # n = 1 captures (the warm-up restored), then replays once
+            wall = _timed(lambda: trainer.optimize(buffer, idx, use_td,
+                                                   graphed=True))
+            row.setdefault("capture_s", wall)
+            _state_equal(f"{name}: {n} graphed SGD steps vs eager",
+                         eager, trainer.state_dict())
+        walls = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            steps = TRAIN["sgd_timed"][mode == "eager"]
+            idx = rb.sample_indices(buffer, gen, (steps, tc.batch_size))
+            walls[mode].append(_timed(lambda: trainer.optimize(
+                buffer, idx, use_td, graphed=mode == "graphed")) / steps)
+        row.update(sgd_steps_per_s=1 / statistics.median(walls["graphed"]),
+                   sgd_steps_per_s_eager=1 / statistics.median(
+                       walls["eager"]),
+                   step_ms=[1e3 * w for w in walls["graphed"]],
+                   step_ms_eager=[1e3 * w for w in walls["eager"]])
+        print(f"train sgd[{name}]: graphed == eager over 1 and 8 steps "
+              f"(params, target, optimizer state bit for bit); capture "
+              f"{row['capture_s']:.3f} s; {row['sgd_steps_per_s']:.0f} "
+              f"steps/s graphed, {row['sgd_steps_per_s_eager']:.0f} eager",
+              flush=True)
+        rows.append(row)
+    report["train"]["sgd"] = rows
+
+
+def collect_check(art, gen, report):
+    """64 captured collection steps at B=16 against 64 eager ones from the
+    same carry and draws (the demonstrator at ε = 0, MP-RGL at ε = 0.5),
+    bit for bit; env-steps/s of each mode in turns."""
+    offset = load_config_module(str(TRAIN_CONFIG)).env.sim.train_seed_offset
+    B, K = TRAIN["B"], TRAIN["K"]
+    rows = []
+    for name, expl, eps in (("orca_demonstrator", art.demonstrator_explorer,
+                             0.0), ("mprl", art.explorer, 0.5)):
+        carry = expl.init_carry(B, offset)
+        draws = art.explorer.draws(gen, K, B)
+        out = {}
+        walls = {"eager": [], "graphed": []}
+        first = _timed(lambda: out.update(graphed=expl.collect(
+            carry, K, offset, eps, draws, graphed=True)))
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            walls[mode].append(_timed(lambda: out.update({
+                mode: expl.collect(carry, K, offset, eps, draws,
+                                   graphed=mode == "graphed")})))
+        for part, got, want in (("carry", out["graphed"][0], out["eager"][0]),
+                                ("trajectory", out["graphed"][1],
+                                 out["eager"][1])):
+            for field, g, w in zip(want._fields, got, want):
+                torch.testing.assert_close(
+                    g, w, **REPLAY_TOL,
+                    msg=lambda m: f"{name}: graphed {part}.{field}: {m}")
+        traj = out["eager"][1]
+        episodes = int(traj.terminal.sum())
+        explored = int((draws[1] < eps).sum())
+        env_steps = B * K
+        row = dict(policy=name, epsilon=eps, B=B, steps=K,
+                   capture_s=first - statistics.median(walls["graphed"]),
+                   env_steps_per_s=env_steps / statistics.median(
+                       walls["graphed"]),
+                   env_steps_per_s_eager=env_steps / statistics.median(
+                       walls["eager"]),
+                   episodes=episodes, explored_decisions=explored)
+        print(f"train collect[{name}, eps {eps}]: {K} graphed steps == "
+              f"eager, bit for bit ({episodes} episodes ended, "
+              f"{explored} exploring decisions); capture "
+              f"{row['capture_s']:.3f} s; {row['env_steps_per_s']:.0f} "
+              f"env-steps/s graphed, {row['env_steps_per_s_eager']:.0f} "
+              f"eager", flush=True)
+        rows.append(row)
+    report["train"]["collect"] = rows
+
+
+def debug_train(dev, mode, report):
+    """``train_loop.train`` on ``mp_separate`` in its debug shrink, in a
+    fresh directory, and its checks."""
+    config = load_config_module(str(TRAIN_CONFIG))
+    out_dir = OUT_DIR / f"train_debug_{mode}"
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+    init = art.policy.init_params(torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in init.networks.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = train_loop.train(
+        config, "model_predictive_rl", str(out_dir), debug=True, seed=0,
+        opts=train_loop.LoopOptions(graphed=mode == "graphed"), device=dev,
+        art=art)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    misses = []
+    if result["demo_success"] < 0.7:
+        misses.append(f"demonstrator success {result['demo_success']}")
+    losses = {k: result[k] for k in ("il_value_loss", "il_sp_loss",
+                                     "value_loss", "sp_loss")}
+    if not all(map(math.isfinite, losses.values())):
+        misses.append(f"losses {losses}")
+    live = art.trainer.state_dict()
+    moved = sum(int(not torch.equal(live["params"][k], v))
+                for k, v in init.items())
+    if moved != len(init):
+        misses.append(f"{len(init) - moved} parameter tensors never moved")
+    for f in ("il_model", "rl_model", "rl_model_best"):
+        if not ckpt.exists(str(out_dir / f)):
+            misses.append(f"no checkpoint {f}")
+    if not (out_dir / "metrics.jsonl").is_file():
+        misses.append("no metrics.jsonl")
+    saved = ckpt.load(str(out_dir / "rl_model"), map_location=dev)
+    try:
+        _state_equal("rl_model vs the live state", live, saved)
+    except AssertionError as e:
+        misses.append(str(e))
+    if misses:
+        raise RuntimeError(f"debug train ({mode}): {'; '.join(misses)}")
+    row = dict(mode=mode, wall_s=wall, result=result,
+               params_moved=f"{moved}/{len(init)}",
+               metrics_lines=len((out_dir / "metrics.jsonl").read_text()
+                                 .splitlines()))
+    print(f"train debug run ({mode}): {wall:.1f} s (IL "
+          f"{result['il_wall_s']:.1f} s, RL {result['rl_wall_s']:.1f} s: "
+          f"collection {result['rl_collect_s']:.1f}, SGD "
+          f"{result['rl_sgd_s']:.1f}, validation {result['rl_val_s']:.1f}; "
+          f"{result['il_sgd_steps']} + {result['rl_sgd_steps']} SGD steps); "
+          f"demonstrator success {result['demo_success']:.3f}, IL val "
+          f"success {result['il_val_success']:.3f}, final val success "
+          f"{result['success_rate']:.3f} over {result['episodes']} RL "
+          f"episodes; losses {losses}; all {moved} parameter tensors moved; "
+          f"checkpoints and metrics.jsonl written, rl_model == live state",
+          flush=True)
+    shutil.rmtree(out_dir)
+    return row
+
+
+def train_phase(dev, report):
+    """Slice 8's checks and rows. Kernel counts are zeroed before the phase
+    and read after it: training launches none of #1-#7."""
+    captured.reset_launch_counts()
+    report["train"] = {}
+    config = load_config_module(str(TRAIN_CONFIG))
+    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+    art.policy.init_params(torch.Generator().manual_seed(0))
+    art.trainer.update_target()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    offset = config.env.sim.train_seed_offset
+    buffer = rb.create(20_000, config.env.sim.human_num, device=dev)
+    carry = art.demonstrator_explorer.init_carry(TRAIN["B"], offset)
+    for _ in range(2):  # demonstrations to sample minibatches from
+        carry, traj = art.demonstrator_explorer.collect(
+            carry, TRAIN["K"], offset)
+        art.demonstrator_explorer.update_memory(buffer, traj, None, True)
+    sgd_check(art, buffer, gen, report)
+    collect_check(art, gen, report)
+    runs = [debug_train(dev, mode, report) for mode in ("graphed", "eager")]
+    same = runs[0]["result"]["success_rate"] == runs[1]["result"][
+        "success_rate"] and runs[0]["result"]["value_loss"] == runs[1][
+        "result"]["value_loss"]
+    report["train"]["debug_runs"] = runs
+    report["train"]["debug_graphed_equals_eager"] = same
+    print(f"train debug runs: graphed {runs[0]['wall_s']:.1f} s, eager "
+          f"{runs[1]['wall_s']:.1f} s; same final val success and loss: "
+          f"{same}", flush=True)
+    launches = captured.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"the training path launched kernels: {launches}")
+    report["train"]["launches"] = launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1570,6 +1805,7 @@ def main() -> int:
     pallas_launches = pallas_phase(dev, report)
     harness_launches = harness_phase(dev, report)
     mprl_phase(dev, report)
+    train_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does)
     path_launches = {
         "fused_block_attention_packed_shared":

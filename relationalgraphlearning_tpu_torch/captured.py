@@ -16,7 +16,7 @@ difference over the capture, the kernel launches one replay holds.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 from torch import Tensor
@@ -51,22 +51,36 @@ class Graphed:
     static inputs, replays the graph and returns ``fn``'s outputs, static
     too: the next call overwrites them, so clone what must outlive it.
 
+    ``state``: the tensors ``fn`` writes in place (a step's carry, a
+    model's parameters and gradients, an optimizer's moments and step
+    count). The warm-up's two calls change them, so they are copied before
+    it and restored after it; the capture runs nothing, so the first replay
+    starts from the caller's state, as one eager call would. A function
+    with no ``inputs`` reads and writes only its ``state`` and is replayed
+    with no arguments.
+
     ``launches``: the kernel launches one replay holds, by kernel. A capture
     that fails raises; nothing falls back to the eager function.
     """
 
-    def __init__(self, fn: Callable, *inputs: Tensor):
-        if not inputs or not all(isinstance(t, Tensor) and t.is_cuda
-                                 for t in inputs):
+    def __init__(self, fn: Callable, *inputs: Tensor,
+                 state: Sequence[Tensor] = ()):
+        tensors = (*inputs, *state)
+        if not tensors or not all(isinstance(t, Tensor) and t.is_cuda
+                                  for t in tensors):
             raise ValueError("a CUDA graph captures CUDA tensors; got "
-                             f"{[getattr(t, 'device', t) for t in inputs]}")
+                             f"{[getattr(t, 'device', t) for t in tensors]}")
         self.inputs = tuple(t.clone() for t in inputs)
-        side = torch.cuda.Stream(device=self.inputs[0].device)
+        saved = [t.clone() for t in state]
+        side = torch.cuda.Stream(device=tensors[0].device)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(2):
                 fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, before in zip(state, saved):
+                t.copy_(before)
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
         with torch.cuda.graph(self.graph):

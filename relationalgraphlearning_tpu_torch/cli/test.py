@@ -1,10 +1,13 @@
 """Evaluation CLI of the PyTorch port (port of ``relationalgraphlearning_tpu/cli/test.py``
 for the MP-RGL policy).
 
-Loads the config from ``--model_dir`` (the JAX package's ``config.py``,
-read by the port's loader) and the weights exported from its checkpoint
-(``relationalgraphlearning_tpu_torch/checkpoints/<model>.npz``, the model
-named by the directory's name), runs the seeded cases of ``--phase`` through
+Loads the config from ``--model_dir`` (its ``config.py``, read by the
+port's loader) and the weights: the port's own ``rl_model_best``
+checkpoint when the directory holds one (a run of the port's
+``cli/train.py``), else the weights exported from the JAX package's
+checkpoint (``relationalgraphlearning_tpu_torch/checkpoints/<model>.npz``,
+the model named by the directory's name). It runs the seeded cases of
+``--phase`` through
 ``Explorer.run_cases`` on the card (``--device cpu`` on the CPU) and prints
 the same record as the reference. The record goes to ``--out`` when given;
 nothing is written into ``--model_dir``.
@@ -32,6 +35,7 @@ from relationalgraphlearning_tpu_torch.configs.base import (
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
 from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
     ModelPredictiveRLPolicy)
+from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training.explorer import Explorer
 
 PLANNER = ("planning_depth", "planning_width", "sparse_search")
@@ -75,11 +79,25 @@ def configure(model_dir: str, human_num=None, **overrides):
     return config, mprl_over
 
 
-def build(config, model: str, device):
-    """(env, policy with the exported weights of ``model``, explorer)."""
+def weights_of(model_dir: str) -> str:
+    """Where the weights of ``model_dir`` come from: its torch checkpoint
+    ``rl_model_best``, else the exported ``checkpoints/<model>.npz``."""
+    best = os.path.join(model_dir, "rl_model_best")
+    if ckpt.exists(best):
+        return best
+    model = os.path.basename(os.path.normpath(model_dir))
+    return str(checkpoints.weights_path(model))
+
+
+def build(config, weights: str, device):
+    """(env, policy with the ``weights`` (``weights_of``), explorer)."""
     env = CrowdSim(config.env, device=device)
     policy = ModelPredictiveRLPolicy(config.policy, config.env, device=device)
-    policy.load_flax(checkpoints.load_flax_tree(model))
+    if weights.endswith(".npz"):
+        model = os.path.basename(weights)[:-len(".npz")]
+        policy.load_flax(checkpoints.load_flax_tree(model))
+    else:
+        policy.networks.load_state_dict(ckpt.load(weights)["params"])
     return env, policy, Explorer(env, policy, config.policy.gamma)
 
 
@@ -108,8 +126,8 @@ def main(argv=None):
     config, overrides = configure(
         args.model_dir, args.human_num,
         **{k: getattr(args, k) for k in PLANNER + ACTION_SPACE})
-    model = os.path.basename(os.path.normpath(args.model_dir))
-    env, policy, explorer = build(config, model, args.device)
+    weights = weights_of(args.model_dir)
+    env, policy, explorer = build(config, weights, args.device)
     sim = config.env.sim
     offset = sim.test_seed_offset if args.phase == "test" \
         else sim.val_seed_offset
@@ -124,11 +142,12 @@ def main(argv=None):
           f"timeout {ev.timeout_rate:.3f}, nav time {ev.avg_nav_time:.2f}s, "
           f"total reward {ev.avg_return:.4f}, danger freq "
           f"{ev.danger_frequency:.4f}, avg min separation in danger "
-          f"{ev.avg_min_dist:.3f} ({seconds:.1f} s on {args.device})",
+          f"{ev.avg_min_dist:.3f} ({seconds:.1f} s on {args.device}; "
+          f"weights {weights})",
           file=sys.stderr)
     record = {
         "policy": args.policy, "phase": args.phase, "cases": size,
-        "checkpoint": "rl_model_best",  # its exported weights
+        "checkpoint": "rl_model_best",
         "human_num": sim.human_num,
         "robot_kinematics": config.env.robot_kinematics,
         "git_sha": _git_sha(),

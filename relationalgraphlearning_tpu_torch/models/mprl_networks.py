@@ -64,20 +64,38 @@ class MPRLNetworks(nn.Module):
         H, _ = self.value_graph_model(robot_c, humans_c)
         return self.value_network(H[..., 0, :])[..., 0]
 
+    def forward(self, robot: Tensor, humans: Tensor,
+                action: Optional[Tensor] = None, detach_graph: bool = False):
+        """V(s), and with an ``action`` also ``next_state`` -> (V, (next_robot,
+        next_humans)): the flax module's ``__call__``, and what a trainer's
+        functional call of the nets runs."""
+        v = self.value(robot, humans)
+        if action is None:
+            return v
+        return v, self.next_state(robot, humans, action, detach_graph)
+
     def attention(self, robot: Tensor, humans: Tensor) -> Tensor:
         """The value graph model's relation matrix, for visualization."""
         robot_c, humans_c, _ = self._canon(robot, humans)
         return self.value_graph_model(robot_c, humans_c)[1]
 
-    def next_state(self, robot: Tensor, humans: Tensor, action: Tensor
-                   ) -> Tuple[Tensor, Tensor]:
-        """-> (next_robot [..., 9], next_humans [..., N, 5])."""
+    def next_state(self, robot: Tensor, humans: Tensor, action: Tensor,
+                   detach_graph: bool = False) -> Tuple[Tensor, Tensor]:
+        """-> (next_robot [..., 9], next_humans [..., N, 5]).
+
+        ``detach_graph``: no gradient reaches the graph model through the
+        prediction, only ``human_motion_predictor`` (the trainer's
+        ``detach_state_predictor``; the reference stops the gradient of
+        every other parameter, which is the same, as the graph model's
+        inputs are data)."""
         next_robot = geometry.propagate_full_state(
             robot, action, self.time_step, self.kinematics)
         if self.cfg.mprl.linear_state_predictor:
             return next_robot, propagate_humans_linear(humans, self.time_step)
         robot_c, humans_c, rot = self._canon(robot, humans)
         H, _ = self.pred_graph(robot_c, humans_c)
+        if detach_graph:
+            H = H.detach()
         next_humans = self.human_motion_predictor(H[..., 1:, :])
         if rot is not None:
             next_humans = decanonicalize_humans(next_humans, robot, rot)

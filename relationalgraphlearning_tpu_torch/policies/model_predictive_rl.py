@@ -31,6 +31,7 @@ from relationalgraphlearning_tpu_torch.configs.base import (
     EnvConfig, PolicyConfig)
 from relationalgraphlearning_tpu_torch.convert import mprl_networks_from_flax
 from relationalgraphlearning_tpu_torch.envs.reward import estimate_reward
+from relationalgraphlearning_tpu_torch.models.init import lecun_normal_
 from relationalgraphlearning_tpu_torch.models.mprl_networks import (
     MPRLNetworks)
 from relationalgraphlearning_tpu_torch.policies.action_space import (
@@ -70,12 +71,29 @@ class ModelPredictiveRLPolicy:
             device=self.device)
         self.networks = MPRLNetworks(
             policy_cfg, time_step=env_cfg.time_step,
-            kinematics=self.kinematics).to(self.device).eval()
-        self.networks.requires_grad_(False)
+            kinematics=self.kinematics).to(self.device)
+        self.eval()
+
+    def init_params(self, generator: torch.Generator
+                    ) -> "ModelPredictiveRLPolicy":
+        """Fresh weights, drawn as flax's defaults draw them
+        (``models/init.py``) from the CPU ``generator``."""
+        lecun_normal_(self.networks, generator)
+        return self
 
     def load_flax(self, tree: Mapping) -> "ModelPredictiveRLPolicy":
         """Load a flax ``MPRLNetworks`` param tree (all its keys, strictly)."""
         self.networks.load_state_dict(mprl_networks_from_flax(tree))
+        return self
+
+    def train(self) -> "ModelPredictiveRLPolicy":
+        """The nets' parameters take gradients (a trainer's state)."""
+        self.networks.train().requires_grad_(True)
+        return self
+
+    def eval(self) -> "ModelPredictiveRLPolicy":
+        """The nets frozen (evaluation; the state after construction)."""
+        self.networks.eval().requires_grad_(False)
         return self
 
     # ------------------------------------------------------------- net calls
@@ -162,9 +180,11 @@ class ModelPredictiveRLPolicy:
         return rew + self._gamma_bar(js.robot)[..., None] * v_next
 
     @torch.no_grad()
-    def predict(self, js: T.JointState, epsilon: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> Tensor:
-        """The greedy planning action [..., 2], with ε-exploration."""
+    def predict(self, js: T.JointState, epsilon=0.0,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+        """The greedy planning action [..., 2], with ε-exploration
+        (``epsilon_greedy``: draws from ``generator`` or given ``draws``)."""
         if self.do_action_clip and self.depth > 1:
             acts, rew, nr, nh = self._clip_actions(js.robot, js.humans,
                                                    self.width)
@@ -175,7 +195,8 @@ class ModelPredictiveRLPolicy:
         else:
             greedy = self.action_space[torch.argmax(self.action_values(js),
                                                     dim=-1)]
-        return epsilon_greedy(greedy, self.action_space, epsilon, generator)
+        return epsilon_greedy(greedy, self.action_space, epsilon, generator,
+                              draws)
 
     def rgl_forwards_per_decision(self) -> int:
         """Six-node RGL forwards one ``predict`` runs for one state, counted

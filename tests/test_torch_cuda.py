@@ -4,7 +4,9 @@ in the A/B harness's chain; the captured CUDA graphs of the chain, the
 harness and both rollouts, each held to its eager run; and the MP-RGL
 evaluation path (batched CrowdSim, planner, ``Explorer.run_cases``) on the
 card against the CPU, its captured step against its eager run, and 32 test
-cases against the JAX package's per-case records.
+cases against the JAX package's per-case records; and MP-RGL training
+(the captured SGD step and collection step, each held to its eager run
+bit for bit, and a ``debug`` train on the card).
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -42,6 +44,9 @@ from relationalgraphlearning_tpu_torch.ops import sparse as tsp
 from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
     ModelPredictiveRLPolicy)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as tak
+from relationalgraphlearning_tpu_torch.training import checkpoint as tckpt
+from relationalgraphlearning_tpu_torch.training import replay_buffer as trb
+from relationalgraphlearning_tpu_torch.training import train_loop as ttl
 from relationalgraphlearning_tpu_torch.training.explorer import (
     EvalCarry, Explorer)
 
@@ -814,3 +819,114 @@ def test_cuda_run_cases_matches_the_per_case_reference(dev):
     assert ((outcome != ref["outcome"]) | other_steps).sum() <= 1
     stats = ex.stats(final)
     assert 0.9 <= float(stats.success_rate) <= 1.0
+
+
+# --------------------------------------------------------- MP-RGL training
+TRAIN_CONFIG = ROOT / "configs" / "icra_benchmark" / "mp_separate.py"
+
+
+def _artifacts(dev, seed=0):
+    config = load_config_module(str(TRAIN_CONFIG))
+    art = ttl.build(config, "model_predictive_rl", seed, dev)
+    art.policy.init_params(torch.Generator().manual_seed(seed))
+    art.trainer.update_target()
+    return config, art
+
+
+def _states_equal(a, b, what):
+    for part in ("params", "target_params"):
+        for k in a[part]:
+            torch.testing.assert_close(b[part][k], a[part][k], rtol=0,
+                                       atol=0, msg=f"{what} {part}.{k}")
+    for sa, sb in zip(a["optimizer_state"], b["optimizer_state"]):
+        for k in sa:
+            torch.testing.assert_close(sb[k], sa[k], rtol=0, atol=0,
+                                       msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("optimizer,use_td", [("sgd", False),
+                                              ("adam", True)])
+def test_cuda_captured_sgd_step_replays_eager(dev, optimizer, use_td):
+    """From the same state and minibatch indices, 1 and then 5 captured SGD
+    steps (the graph reused) equal as many eager ones bit for bit:
+    parameters, target and optimizer state; the graph launches no kernel
+    of #1-#7."""
+    config, art = _artifacts(dev)
+    trainer = art.trainer
+    trainer.set_learning_rate(0.01, optimizer)
+    buf = trb.create(4096, config.env.sim.human_num, device=dev)
+    g = torch.Generator().manual_seed(0)
+    n = 3000
+    trb.push(buf, trb.Transition(
+        torch.randn(n, 9, generator=g), torch.randn(n, 5, 5, generator=g),
+        torch.randn(n, generator=g), torch.randn(n, generator=g),
+        torch.randn(n, 9, generator=g), torch.randn(n, 5, 5, generator=g),
+        (torch.rand(n, generator=g) < 0.8).float(),
+        (torch.rand(n, generator=g) < 0.2).float()))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for steps in (1, 5):
+        idx = trb.sample_indices(buf, gen, (steps, 100))
+        before = trainer.state_dict()
+        eager_aux = trainer.optimize(buf, idx, use_td, graphed=False)
+        eager = trainer.state_dict()
+        trainer.load_state(before)
+        graphed_aux = trainer.optimize(buf, idx, use_td, graphed=True)
+        _states_equal(eager, trainer.state_dict(), f"{steps} steps")
+        assert [float(x) for x in graphed_aux] == [float(x)
+                                                   for x in eager_aux]
+    ((held, graph),) = trainer._graphs.values()
+    assert held is buf and not any(graph.launches.values())
+
+
+@pytest.mark.parametrize("policy,epsilon", [("orca", 0.0), ("mprl", 0.5)])
+def test_cuda_captured_collection_replays_eager(dev, policy, epsilon):
+    """64 captured collection steps at B=16 equal 64 eager ones bit for bit
+    from the same carry and draws, with auto-resets on the way; the graph
+    is reused and recaptured when the case table grows."""
+    config, art = _artifacts(dev)
+    expl = art.demonstrator_explorer if policy == "orca" else art.explorer
+    offset = config.env.sim.train_seed_offset
+    gen = torch.Generator(device=dev).manual_seed(2)
+    carry = expl.init_carry(16, offset)
+    for round_ in range(2):
+        draws = art.explorer.draws(gen, 64, 16)
+        eager = expl.collect(carry, 64, offset, epsilon, draws,
+                             graphed=False)
+        graphed = expl.collect(carry, 64, offset, epsilon, draws,
+                               graphed=True)
+        for part, a, b in zip(("carry", "trajectory"), eager, graphed):
+            for name, x, y in zip(a._fields, a, b):
+                torch.testing.assert_close(y, x, rtol=0, atol=0,
+                                           msg=f"{part}.{name}")
+        assert bool(eager[1].terminal.any()) or policy == "mprl"
+        carry = eager[0]
+        if round_ == 0:  # jump near the table's end: it grows
+            table = expl.case_table(offset)
+            cap = table.capacity
+            carry = carry._replace(case_counter=carry.case_counter
+                                   + cap - 16 * 2)
+    assert expl.case_table(offset).capacity > cap
+    assert len(expl._collect_graphs) == 1
+
+
+def test_cuda_debug_train(dev, tmp_path):
+    """``train_loop.train`` in its debug shrink on the card: the
+    demonstrator gate passes, losses are finite, every parameter moved,
+    the checkpoints and metrics are written and ``rl_model`` is the live
+    state."""
+    config, art = _artifacts(dev)
+    init = {k: v.clone() for k, v in art.trainer.state_dict()[
+        "params"].items()}
+    result = ttl.train(config, "model_predictive_rl", str(tmp_path),
+                       debug=True, seed=0, device=dev, art=art)
+    assert result["demo_success"] >= 0.7 and result["episodes"] >= 40
+    for k in ("il_value_loss", "il_sp_loss", "value_loss", "sp_loss"):
+        assert np.isfinite(result[k]), k
+    live = art.trainer.state_dict()
+    assert all(not torch.equal(live["params"][k], v)
+               for k, v in init.items())
+    for name in ("il_model", "rl_model", "rl_model_best"):
+        assert tckpt.exists(str(tmp_path / name)), name
+    assert (tmp_path / "metrics.jsonl").is_file()
+    _states_equal(live, tckpt.load(str(tmp_path / "rl_model"),
+                                   map_location=dev), "rl_model")

@@ -32,7 +32,11 @@ for leaf in ("tools.ab_kernel", "types", "geometry", "checkpoints",
              "models.state_predictor", "models.mprl_networks",
              "policies.action_space", "policies.base",
              "policies.state_transform", "policies.model_predictive_rl",
-             "training.explorer", "cli.test"):
+             "training.explorer", "cli.test", "models.init",
+             "policies.robot_policies", "policies.factory",
+             "training.replay_buffer", "training.trainer",
+             "training.checkpoint", "training.metrics",
+             "training.train_loop", "cli.train"):
     assert "relationalgraphlearning_tpu_torch." + leaf in names, leaf
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -95,7 +95,24 @@ Phases, each of which exits non-zero on failure:
    to the live state. SGD steps/s and collection env-steps/s, graphed and
    eager in turns, the runs' walls and the capture seconds. None of
    kernels #1-#7 may launch.
-10. Print the ``kernels`` line, the card line and the last line.
+10. The paper's baselines (slice 9): the 500 seeded test cases of seven
+    rows of its table through ``Explorer.run_cases`` on the card, built as
+    the port's CLI builds them: ``sarl``, ``sarl_om``, ``lstm_rl``,
+    ``cadrl`` (trained with one human, tested with ``--human_num 5``),
+    ``rgl`` (the model-free one-step RGL) with the committed checkpoints'
+    exported weights, and the ORCA robot at the env's time horizon and at
+    ``--orca_time_horizon 10``. Each runs eager and graphed in turns and is
+    held as in phase 8: success and collision within 0.010 and nav time
+    within 0.20 s of the committed ``eval_test*.json``, at least 485 of 500
+    outcomes equal to the JAX package's per-case records, graphed == eager
+    bit for bit. ``sarl`` with the env-queried lookahead (``query_env``)
+    runs graphed and eager too, held to each other bit for bit. Then the
+    value-only trainer (``VNRLTrainer``) on ``sarl``: one and 8 captured
+    SGD steps against eager ones (SGD and Adam), 64 captured collection
+    steps against eager ones (the demonstrator, and SARL at ε = 0.5), and
+    ``train_loop.train`` in its debug shrink graphed and eager, with phase
+    9's checks. None of kernels #1-#7 may launch.
+11. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -204,6 +221,17 @@ MPRL_RUNS = (("mprl_td", "mprl_td", {}, "eval_test.json"),
 MPRL_BOUNDS = dict(success_rate=0.010, collision_rate=0.010,
                    nav_time=0.20)
 MPRL_MIN_AGREE = 485
+# Phase 10: (run, model directory, policy, the CLI's overrides, committed
+# record), held to MPRL_BOUNDS and MPRL_MIN_AGREE.
+BASELINE_RUNS = (
+    ("sarl", "sarl", "sarl", {}, "eval_test.json"),
+    ("sarl_om", "sarl_om", "sarl", {}, "eval_test.json"),
+    ("lstm_rl", "lstm_rl", "lstm_rl", {}, "eval_test.json"),
+    ("cadrl", "cadrl", "cadrl", {"human_num": 5}, "eval_test.json"),
+    ("rgl", "rgl", "rgl", {}, "eval_test.json"),
+    ("orca", "orca", "orca", {}, "eval_test.json"),
+    ("orca_th10", "orca_th10", "orca", {"orca_time_horizon": 10.0},
+     "eval_test_th10.json"))
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
 # the SXM part is the default.
@@ -1213,21 +1241,26 @@ def harness_phase(dev, report):
 
 # ------------------------------------------------------------- --profile
 # ------------------------------------------------------------------ phase 8
-def mprl_setup(model, overrides, dev):
-    """(config, env, policy with the exported weights, explorer) of
-    ``results/<model>`` with planner ``overrides``, as the port's CLI
-    builds them."""
-    config, _ = eval_cli.configure(str(ROOT / "results" / model),
-                                   **overrides)
+def eval_setup(model, policy, overrides, dev):
+    """(config, env, policy, explorer) of ``results/<model>`` with the CLI's
+    ``overrides`` (``human_num``, the planner's, ``orca_time_horizon``), as
+    the port's CLI builds them: a trained policy with its weights."""
+    over = dict(overrides)
+    kwargs = {}
+    if "orca_time_horizon" in over:
+        kwargs["time_horizon"] = over.pop("orca_time_horizon")
     model_dir = str(ROOT / "results" / model)
-    return (config, *eval_cli.build(config, eval_cli.weights_of(model_dir),
-                                    dev))
+    config, _ = eval_cli.configure(model_dir, **over)
+    trained = eval_cli.policy_factory[policy].trainable
+    weights = eval_cli.weights_of(model_dir) if trained else None
+    return (config, *eval_cli.build(config, policy, weights, dev, kwargs))
 
 
-def mprl_run(run, model, overrides, record, dev, order):
+def eval_run(run, model, policy_name, overrides, record, dev, order):
     """One evaluated configuration's 500 cases, eager and graphed in
     ``order``, and its checks. Returns its report."""
-    config, env, policy, explorer = mprl_setup(model, overrides, dev)
+    config, env, policy, explorer = eval_setup(model, policy_name, overrides,
+                                               dev)
     sim = config.env.sim
     offset, cases = sim.test_seed_offset, range(sim.test_size)
     torch.cuda.synchronize()
@@ -1270,7 +1303,8 @@ def mprl_run(run, model, overrides, record, dev, order):
                  nav_time=stats["avg_nav_time"] - committed["nav_time"])
     steps = sim.test_size * config.env.max_steps
     out = dict(
-        run=run, model=model, overrides=overrides, cases=sim.test_size,
+        run=run, model=model, policy=policy_name, overrides=overrides,
+        cases=sim.test_size,
         stats=stats, committed={k: committed[k] for k in (
             "success_rate", "collision_rate", "timeout_rate", "nav_time",
             "return", "danger_frequency", "avg_min_dist")},
@@ -1279,11 +1313,14 @@ def mprl_run(run, model, overrides, record, dev, order):
         capture_s=capture_s, wall_s=walls["graphed"],
         wall_s_eager=walls["eager"], order=list(order),
         env_steps_per_s=steps / walls["graphed"],
-        env_steps_per_s_eager=steps / walls["eager"],
-        rgl_forwards_per_decision=policy.rgl_forwards_per_decision(),
-        rgl_forwards_per_step=policy.rgl_forwards_per_decision()
-        * sim.test_size)
-    print(f"mprl {run}: success {stats['success_rate']:.3f} "
+        env_steps_per_s_eager=steps / walls["eager"])
+    planner = policy_name == "model_predictive_rl"
+    if planner:
+        forwards = policy.rgl_forwards_per_decision()
+        out.update(rgl_forwards_per_decision=forwards,
+                   rgl_forwards_per_step=forwards * sim.test_size)
+    print(f"{'mprl' if planner else 'baseline'} {run}: success "
+          f"{stats['success_rate']:.3f} "
           f"[{committed['success_rate']:.3f}], collision "
           f"{stats['collision_rate']:.3f} [{committed['collision_rate']:.3f}]"
           f", timeout {stats['timeout_rate']:.3f} "
@@ -1299,8 +1336,8 @@ def mprl_run(run, model, overrides, record, dev, order):
           f"{walls['graphed']:.3f} s ({out['env_steps_per_s']:.0f} env-steps"
           f"/s), eager {walls['eager']:.3f} s "
           f"({out['env_steps_per_s_eager']:.0f}), "
-          f"{out['rgl_forwards_per_decision']} RGL forwards a decision, "
-          f"graphed == eager",
+          + (f"{out['rgl_forwards_per_decision']} RGL forwards a decision, "
+             if planner else "") + "graphed == eager",
           flush=True)
     misses = [f"|d {k}| = {abs(v):.4f} > {MPRL_BOUNDS[k]}"
               for k, v in delta.items() if abs(v) > MPRL_BOUNDS[k]]
@@ -1328,7 +1365,8 @@ def mprl_phase(dev, report):
     with torch.no_grad():
         for i, (run, model, overrides, record) in enumerate(MPRL_RUNS):
             order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
-            runs.append(mprl_run(run, model, overrides, record, dev, order))
+            runs.append(eval_run(run, model, "model_predictive_rl",
+                                 overrides, record, dev, order))
     launches = captured.launch_counts()
     if any(launches.values()):
         raise RuntimeError(f"the MP-RGL path launched kernels: {launches}")
@@ -1347,7 +1385,8 @@ def mprl_profile_phase(dev, report, steps=10):
 
     from relationalgraphlearning_tpu_torch.envs.reward import compute_reward
 
-    config, env, policy, explorer = mprl_setup("mprl_td", {}, dev)
+    config, env, policy, explorer = eval_setup("mprl_td",
+                                               "model_predictive_rl", {}, dev)
     carry = explorer.initial_carry(config.env.sim.test_seed_offset,
                                    range(config.env.sim.test_size))
     times = dict(planner=0.0, orca=0.0, reward=0.0)
@@ -1576,11 +1615,11 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def sgd_check(art, buffer, gen, report):
+def sgd_check(art, buffer, gen, tc, label):
     """One and then 8 captured SGD steps against as many eager ones from
     the same state and indices, for SGD (imitation) and Adam (RL); then
-    steps/s of each mode in turns."""
-    trainer, tc = art.trainer, load_config_module(str(TRAIN_CONFIG)).train
+    steps/s of each mode in turns -> the rows."""
+    trainer = art.trainer
     rows = []
     for name, lr, use_td in (("sgd", tc.il_learning_rate, False),
                              ("adam", tc.rl_learning_rate, True)):
@@ -1609,24 +1648,23 @@ def sgd_check(art, buffer, gen, report):
                        walls["eager"]),
                    step_ms=[1e3 * w for w in walls["graphed"]],
                    step_ms_eager=[1e3 * w for w in walls["eager"]])
-        print(f"train sgd[{name}]: graphed == eager over 1 and 8 steps "
+        print(f"{label} sgd[{name}]: graphed == eager over 1 and 8 steps "
               f"(params, target, optimizer state bit for bit); capture "
               f"{row['capture_s']:.3f} s; {row['sgd_steps_per_s']:.0f} "
               f"steps/s graphed, {row['sgd_steps_per_s_eager']:.0f} eager",
               flush=True)
         rows.append(row)
-    report["train"]["sgd"] = rows
+    return rows
 
 
-def collect_check(art, gen, report):
+def collect_check(art, gen, offset, policy, label):
     """64 captured collection steps at B=16 against 64 eager ones from the
-    same carry and draws (the demonstrator at ε = 0, MP-RGL at ε = 0.5),
-    bit for bit; env-steps/s of each mode in turns."""
-    offset = load_config_module(str(TRAIN_CONFIG)).env.sim.train_seed_offset
+    same carry and draws (the demonstrator at ε = 0, ``policy`` at
+    ε = 0.5), bit for bit; env-steps/s of each mode in turns -> the rows."""
     B, K = TRAIN["B"], TRAIN["K"]
     rows = []
     for name, expl, eps in (("orca_demonstrator", art.demonstrator_explorer,
-                             0.0), ("mprl", art.explorer, 0.5)):
+                             0.0), (policy, art.explorer, 0.5)):
         carry = expl.init_carry(B, offset)
         draws = art.explorer.draws(gen, K, B)
         out = {}
@@ -1655,30 +1693,30 @@ def collect_check(art, gen, report):
                    env_steps_per_s_eager=env_steps / statistics.median(
                        walls["eager"]),
                    episodes=episodes, explored_decisions=explored)
-        print(f"train collect[{name}, eps {eps}]: {K} graphed steps == "
+        print(f"{label} collect[{name}, eps {eps}]: {K} graphed steps == "
               f"eager, bit for bit ({episodes} episodes ended, "
               f"{explored} exploring decisions); capture "
               f"{row['capture_s']:.3f} s; {row['env_steps_per_s']:.0f} "
               f"env-steps/s graphed, {row['env_steps_per_s_eager']:.0f} "
               f"eager", flush=True)
         rows.append(row)
-    report["train"]["collect"] = rows
+    return rows
 
 
-def debug_train(dev, mode, report):
-    """``train_loop.train`` on ``mp_separate`` in its debug shrink, in a
-    fresh directory, and its checks."""
-    config = load_config_module(str(TRAIN_CONFIG))
-    out_dir = OUT_DIR / f"train_debug_{mode}"
+def debug_train(dev, mode, config_path, policy, label):
+    """``train_loop.train`` of ``policy`` on the config at ``config_path``
+    in its debug shrink, in a fresh directory, and its checks."""
+    config = load_config_module(str(config_path))
+    out_dir = OUT_DIR / f"{label}_debug_{mode}"
     if out_dir.exists():
         shutil.rmtree(out_dir)
-    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+    art = train_loop.build(config, policy, 0, dev)
     init = art.policy.init_params(torch.Generator().manual_seed(0))
     init = {k: v.clone() for k, v in init.networks.state_dict().items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = train_loop.train(
-        config, "model_predictive_rl", str(out_dir), debug=True, seed=0,
+        config, policy, str(out_dir), debug=True, seed=0,
         opts=train_loop.LoopOptions(graphed=mode == "graphed"), device=dev,
         art=art)
     torch.cuda.synchronize()
@@ -1706,12 +1744,13 @@ def debug_train(dev, mode, report):
     except AssertionError as e:
         misses.append(str(e))
     if misses:
-        raise RuntimeError(f"debug train ({mode}): {'; '.join(misses)}")
+        raise RuntimeError(f"{label} debug train ({mode}): "
+                           f"{'; '.join(misses)}")
     row = dict(mode=mode, wall_s=wall, result=result,
                params_moved=f"{moved}/{len(init)}",
                metrics_lines=len((out_dir / "metrics.jsonl").read_text()
                                  .splitlines()))
-    print(f"train debug run ({mode}): {wall:.1f} s (IL "
+    print(f"{label} debug run ({mode}): {wall:.1f} s (IL "
           f"{result['il_wall_s']:.1f} s, RL {result['rl_wall_s']:.1f} s: "
           f"collection {result['rl_collect_s']:.1f}, SGD "
           f"{result['rl_sgd_s']:.1f}, validation {result['rl_val_s']:.1f}; "
@@ -1726,13 +1765,13 @@ def debug_train(dev, mode, report):
     return row
 
 
-def train_phase(dev, report):
-    """Slice 8's checks and rows. Kernel counts are zeroed before the phase
-    and read after it: training launches none of #1-#7."""
-    captured.reset_launch_counts()
-    report["train"] = {}
-    config = load_config_module(str(TRAIN_CONFIG))
-    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+def train_checks(dev, config_path, policy, label) -> dict:
+    """Phase 9's checks of ``policy``'s training on the config at
+    ``config_path``: captured SGD steps and collection against eager, and
+    the debug run graphed and eager -> their report."""
+    out = {}
+    config = load_config_module(str(config_path))
+    art = train_loop.build(config, policy, 0, dev)
     art.policy.init_params(torch.Generator().manual_seed(0))
     art.trainer.update_target()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1743,21 +1782,84 @@ def train_phase(dev, report):
         carry, traj = art.demonstrator_explorer.collect(
             carry, TRAIN["K"], offset)
         art.demonstrator_explorer.update_memory(buffer, traj, None, True)
-    sgd_check(art, buffer, gen, report)
-    collect_check(art, gen, report)
-    runs = [debug_train(dev, mode, report) for mode in ("graphed", "eager")]
+    out["sgd"] = sgd_check(art, buffer, gen, config.train, label)
+    out["collect"] = collect_check(
+        art, gen, offset, {"model_predictive_rl": "mprl"}.get(policy, policy),
+        label)
+    runs = [debug_train(dev, mode, config_path, policy, label)
+            for mode in ("graphed", "eager")]
     same = runs[0]["result"]["success_rate"] == runs[1]["result"][
         "success_rate"] and runs[0]["result"]["value_loss"] == runs[1][
         "result"]["value_loss"]
-    report["train"]["debug_runs"] = runs
-    report["train"]["debug_graphed_equals_eager"] = same
-    print(f"train debug runs: graphed {runs[0]['wall_s']:.1f} s, eager "
+    out["debug_runs"] = runs
+    out["debug_graphed_equals_eager"] = same
+    print(f"{label} debug runs: graphed {runs[0]['wall_s']:.1f} s, eager "
           f"{runs[1]['wall_s']:.1f} s; same final val success and loss: "
           f"{same}", flush=True)
+    return out
+
+
+def train_phase(dev, report):
+    """Slice 8's checks and rows. Kernel counts are zeroed before the phase
+    and read after it: training launches none of #1-#7."""
+    captured.reset_launch_counts()
+    report["train"] = train_checks(dev, TRAIN_CONFIG, "model_predictive_rl",
+                                   "train")
     launches = captured.launch_counts()
     if any(launches.values()):
         raise RuntimeError(f"the training path launched kernels: {launches}")
     report["train"]["launches"] = launches
+
+
+def query_env_check(dev):
+    """``sarl`` with the env-queried lookahead over the 500 test cases,
+    graphed and eager, held to each other bit for bit -> its report."""
+    config, env, policy, explorer = eval_setup("sarl", "sarl", {}, dev)
+    policy.query_env = True
+    sim = config.env.sim
+    offset, cases = sim.test_seed_offset, range(sim.test_size)
+    walls, finals = {}, {}
+    for mode in ("graphed", "eager"):  # the first call captures
+        walls[mode] = _timed(lambda: finals.update({mode: explorer.rollout(
+            offset, cases, graphed=mode == "graphed")}))
+    for name, got, ref in zip(finals["eager"]._fields, finals["graphed"],
+                              finals["eager"]):
+        torch.testing.assert_close(
+            got, ref, **REPLAY_TOL,
+            msg=lambda m: f"sarl query_env: graphed {name} vs eager: {m}")
+    stats = {k: float(v) for k, v in zip(
+        explorer.stats(finals["eager"])._fields,
+        explorer.stats(finals["eager"]))}
+    print(f"baseline sarl query_env: success {stats['success_rate']:.3f}, "
+          f"collision {stats['collision_rate']:.3f}, nav time "
+          f"{stats['avg_nav_time']:.4f} s; graphed (with its capture) "
+          f"{walls['graphed']:.3f} s, eager {walls['eager']:.3f} s; graphed "
+          f"== eager", flush=True)
+    return dict(stats=stats, wall_s_with_capture=walls["graphed"],
+                wall_s_eager=walls["eager"])
+
+
+def baselines_phase(dev, report):
+    """Slice 9: the seven evaluated baseline rows, each eager and graphed in
+    turns, the env-queried lookahead, and ``sarl``'s value-only training.
+    Kernel counts are zeroed before the phase and read after it: this path
+    launches none of #1-#7."""
+    captured.reset_launch_counts()
+    runs = []
+    with torch.no_grad():
+        for i, (run, model, policy, overrides, record) in enumerate(
+                BASELINE_RUNS):
+            order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
+            runs.append(eval_run(run, model, policy, overrides, record, dev,
+                                 order))
+        query_env = query_env_check(dev)
+    train = train_checks(dev, ROOT / "results" / "sarl" / "config.py",
+                         "sarl", "sarl")
+    launches = captured.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"the baselines' path launched kernels: {launches}")
+    report["baselines"] = dict(runs=runs, query_env=query_env, train=train,
+                               launches=launches)
 
 
 def main() -> int:
@@ -1806,6 +1908,7 @@ def main() -> int:
     harness_launches = harness_phase(dev, report)
     mprl_phase(dev, report)
     train_phase(dev, report)
+    baselines_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does)
     path_launches = {
         "fused_block_attention_packed_shared":

@@ -1,5 +1,6 @@
-"""Exported weights of the committed MP-RGL checkpoints, and per-case
-references of their 500-case test evaluations.
+"""Exported weights of the committed checkpoints (MP-RGL and the one-step
+baselines), and per-case references of their 500-case test evaluations
+(the ORCA robot's too).
 
 ``<model>.npz`` holds every array of the JAX package's restored
 ``state.params`` for ``results/<model>/rl_model_best``, keyed by its flax

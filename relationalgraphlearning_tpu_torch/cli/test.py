@@ -1,20 +1,28 @@
-"""Evaluation CLI of the PyTorch port (port of ``relationalgraphlearning_tpu/cli/test.py``
-for the MP-RGL policy).
+"""Evaluation CLI of the PyTorch port (port of
+``relationalgraphlearning_tpu/cli/test.py``) for every policy of the
+factory: MP-RGL, the one-step baselines (``cadrl``, ``sarl``, ``lstm_rl``,
+``gcn``/``rgl``) and the robot policies without parameters (``orca``,
+``linear``, ``socialforce``).
 
 Loads the config from ``--model_dir`` (its ``config.py``, read by the
-port's loader) and the weights: the port's own ``rl_model_best``
-checkpoint when the directory holds one (a run of the port's
-``cli/train.py``), else the weights exported from the JAX package's
-checkpoint (``relationalgraphlearning_tpu_torch/checkpoints/<model>.npz``,
-the model named by the directory's name). It runs the seeded cases of
-``--phase`` through
-``Explorer.run_cases`` on the card (``--device cpu`` on the CPU) and prints
-the same record as the reference. The record goes to ``--out`` when given;
-nothing is written into ``--model_dir``.
+port's loader; the defaults when it has none) and, for a trained policy,
+the weights: the port's own ``rl_model_best`` checkpoint when the directory
+holds one (a run of the port's ``cli/train.py``), else the weights exported
+from the JAX package's checkpoint
+(``relationalgraphlearning_tpu_torch/checkpoints/<model>.npz``, the model
+named by the directory's name). It runs the seeded cases of ``--phase``
+through ``Explorer.run_cases`` on the card (``--device cpu`` on the CPU)
+and prints the same record as the reference. The record goes to ``--out``
+when given (into a directory ``--out`` as the reference's
+``eval_<phase><suffix>.json``); nothing is written into ``--model_dir``.
 
     python -m relationalgraphlearning_tpu_torch.cli.test \\
         --model_dir results/mprl_td [--planning_depth 1] [--test_size 500] \\
         [--device cpu] [--out eval.json]
+    python -m relationalgraphlearning_tpu_torch.cli.test --policy sarl \\
+        --model_dir results/sarl
+    python -m relationalgraphlearning_tpu_torch.cli.test --policy orca \\
+        --model_dir results/orca_th10 --orca_time_horizon 10
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ from relationalgraphlearning_tpu_torch import checkpoints
 from relationalgraphlearning_tpu_torch.configs.base import (
     Config, load_config_module)
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
-from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
-    ModelPredictiveRLPolicy)
+from relationalgraphlearning_tpu_torch.policies.factory import (
+    make_policy, policy_factory)
 from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training.explorer import Explorer
 
@@ -89,23 +97,46 @@ def weights_of(model_dir: str) -> str:
     return str(checkpoints.weights_path(model))
 
 
-def build(config, weights: str, device):
-    """(env, policy with the ``weights`` (``weights_of``), explorer)."""
+def build(config, policy_name: str, weights, device,
+          policy_kwargs: dict | None = None):
+    """(env, policy with the ``weights`` (``weights_of``; None for a policy
+    without parameters), explorer)."""
     env = CrowdSim(config.env, device=device)
-    policy = ModelPredictiveRLPolicy(config.policy, config.env, device=device)
-    if weights.endswith(".npz"):
+    policy = make_policy(policy_name, config.policy, config.env,
+                         device=device, **(policy_kwargs or {}))
+    if weights and weights.endswith(".npz"):
         model = os.path.basename(weights)[:-len(".npz")]
         policy.load_flax(checkpoints.load_flax_tree(model))
-    else:
+    elif weights:
         policy.networks.load_state_dict(ckpt.load(weights)["params"])
     return env, policy, Explorer(env, policy, config.policy.gamma)
 
 
+def record_suffix(args) -> str:
+    """The suffix of the reference's ``eval_<phase><suffix>.json``."""
+    suffix = ""
+    if args.planning_depth is not None:
+        suffix += f"_d{args.planning_depth}"
+    if args.planning_width is not None:
+        suffix += f"_w{args.planning_width}"
+    if args.sparse_search:
+        suffix += "_sparse"
+    if args.rotation_constraint is not None:
+        suffix += f"_rc{args.rotation_constraint:g}"
+    if args.rotation_samples is not None:
+        suffix += f"_rs{args.rotation_samples}"
+    if args.safety_space is not None:
+        suffix += f"_ss{args.safety_space:g}"
+    if args.orca_time_horizon is not None:
+        suffix += f"_th{args.orca_time_horizon:g}"
+    return suffix
+
+
 def main(argv=None):
-    p = argparse.ArgumentParser(description="Evaluate an MP-RGL model with "
-                                "the PyTorch port")
+    p = argparse.ArgumentParser(description="Evaluate a policy with the "
+                                "PyTorch port")
     p.add_argument("--policy", default="model_predictive_rl",
-                   choices=["model_predictive_rl"])
+                   choices=sorted(policy_factory))
     p.add_argument("--model_dir", required=True)
     p.add_argument("--phase", default="test", choices=["val", "test"])
     p.add_argument("--test_size", type=int, default=None)
@@ -115,19 +146,37 @@ def main(argv=None):
     p.add_argument("--sparse_search", action="store_true", default=None)
     p.add_argument("--rotation_constraint", type=float, default=None)
     p.add_argument("--rotation_samples", type=int, default=None)
+    p.add_argument("--safety_space", type=float, default=None,
+                   help="the ORCA robot policy's safety space (only for "
+                        "--policy orca)")
+    p.add_argument("--orca_time_horizon", type=float, default=None,
+                   help="the ORCA robot policy's time horizon (only for "
+                        "--policy orca; the humans keep the env's)")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless asked (cpu)")
     p.add_argument("--out", default=None,
-                   help="write the record to this JSON file")
+                   help="write the record to this JSON file, or into this "
+                        "directory as eval_<phase><suffix>.json")
     args = p.parse_args(argv)
     if not os.path.isdir(args.model_dir):
         p.error(f"no model directory {args.model_dir}")
+    policy_kwargs = {}
+    if args.safety_space is not None:
+        if args.policy != "orca":
+            p.error("--safety_space only applies to --policy orca")
+        policy_kwargs["safety_space"] = args.safety_space
+    if args.orca_time_horizon is not None:
+        if args.policy != "orca":
+            p.error("--orca_time_horizon only applies to --policy orca")
+        policy_kwargs["time_horizon"] = args.orca_time_horizon
 
     config, overrides = configure(
         args.model_dir, args.human_num,
         **{k: getattr(args, k) for k in PLANNER + ACTION_SPACE})
-    weights = weights_of(args.model_dir)
-    env, policy, explorer = build(config, weights, args.device)
+    trained = policy_factory[args.policy].trainable
+    weights = weights_of(args.model_dir) if trained else None
+    env, policy, explorer = build(config, args.policy, weights, args.device,
+                                  policy_kwargs)
     sim = config.env.sim
     offset = sim.test_seed_offset if args.phase == "test" \
         else sim.val_seed_offset
@@ -143,11 +192,12 @@ def main(argv=None):
           f"total reward {ev.avg_return:.4f}, danger freq "
           f"{ev.danger_frequency:.4f}, avg min separation in danger "
           f"{ev.avg_min_dist:.3f} ({seconds:.1f} s on {args.device}; "
-          f"weights {weights})",
+          f"weights {weights or 'none'})",
           file=sys.stderr)
     record = {
         "policy": args.policy, "phase": args.phase, "cases": size,
-        "checkpoint": "rl_model_best",
+        "checkpoint": "rl_model_best" if trained
+        else "none (untrained policy)",
         "human_num": sim.human_num,
         "robot_kinematics": config.env.robot_kinematics,
         "git_sha": _git_sha(),
@@ -161,10 +211,18 @@ def main(argv=None):
     }
     if overrides:
         record["planner_overrides"] = overrides
+    if args.safety_space is not None:
+        record["safety_space"] = args.safety_space
+    if args.orca_time_horizon is not None:
+        record["orca_time_horizon"] = args.orca_time_horizon
     text = json.dumps(record, indent=1)
     print(text)
     if args.out:
-        with open(args.out, "w") as f:
+        out = args.out
+        if os.path.isdir(out):
+            out = os.path.join(out, f"eval_{args.phase}"
+                               f"{record_suffix(args)}.json")
+        with open(out, "w") as f:
             f.write(text)
     return record
 

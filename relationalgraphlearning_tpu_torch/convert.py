@@ -104,3 +104,47 @@ def mprl_networks_from_flax(tree: Mapping) -> dict:
     if "human_motion_predictor" in p:
         _mlp("human_motion_predictor", p["human_motion_predictor"], out)
     return out
+
+
+def cadrl_from_flax(tree: Mapping) -> dict:
+    """``CADRLNet`` params -> the ``state_dict`` of the port's ``CADRLNet``
+    (``value_network/dense_i``)."""
+    out: dict = {}
+    _mlp("value_network", tree.get("params", tree)["value_network"], out)
+    return out
+
+
+def sarl_from_flax(tree: Mapping) -> dict:
+    """``SARLNet`` params -> the ``state_dict`` of the port's ``SARLNet``
+    (``mlp1``, ``mlp2``, ``attention``, ``mlp3``, each ``dense_i``)."""
+    p = tree.get("params", tree)
+    out: dict = {}
+    for name in ("mlp1", "mlp2", "attention", "mlp3"):
+        _mlp(name, p[name], out)
+    return out
+
+
+def lstm_rl_from_flax(tree: Mapping) -> dict:
+    """``LstmRLNet`` params -> the ``state_dict`` of the port's
+    ``LstmRLNet``: the LSTM cell's eight kernels (``ii``..``io`` without
+    bias, ``hi``..``ho`` with), ``value_network`` and, with the interaction
+    module, ``mlp1``."""
+    p = tree.get("params", tree)
+    out: dict = {}
+    for gate in "ifgo":
+        for src in "ih":
+            _dense(f"lstm.{src}{gate}", p["lstm"][f"{src}{gate}"], out)
+    _mlp("value_network", p["value_network"], out)
+    if "mlp1" in p:
+        _mlp("mlp1", p["mlp1"], out)
+    return out
+
+
+def value_estimator_from_flax(tree: Mapping) -> dict:
+    """``ValueEstimator`` params -> the ``state_dict`` of the port's
+    ``ValueEstimator`` (``graph_model`` as an RGL, ``value_network``)."""
+    p = tree.get("params", tree)
+    out: dict = {}
+    _rgl("graph_model.", p["graph_model"], out)
+    _mlp("value_network", p["value_network"], out)
+    return out

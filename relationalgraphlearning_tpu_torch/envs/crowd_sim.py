@@ -172,3 +172,35 @@ class CrowdSim:
             done=new_state.done,
             outcome=new_state.outcome,
             dmin=torch.where(was_done, float("inf"), r.dmin))
+
+    def onestep_lookahead(self, state: EnvState, action: Tensor
+                          ) -> StepOutput:
+        """The step an action would take, the env left as it is (the
+        reference's ``onestep_lookahead``; ``step`` is a pure function)."""
+        return self.step(state, action)
+
+    def lookahead_actions(self, state: EnvState, actions: Tensor
+                          ) -> tuple[Tensor, Tensor, Tensor]:
+        """The privileged one-step lookahead of every env over the actions
+        [A, 2] (the reference's ``query_env``): the humans' step, which no
+        robot action changes, runs once; the reward sweeps the actions ->
+        (rewards [B, A], next_robot [B, A, 9], next human observations
+        [B, N, 5])."""
+        cfg = self.cfg
+        dt = cfg.time_step
+        human_v = self.human_velocities(state)
+        t_next = (state.step.to(torch.float32) + 1.0) * dt
+        obs = T.observable(state.humans)
+        B, A = state.robot.shape[0], actions.shape[0]
+
+        def sweep(x: Tensor) -> Tensor:  # [B, ...] -> [B, A, ...]
+            return x[:, None].expand((B, A) + x.shape[1:])
+
+        robot_b, acts = sweep(state.robot), actions.expand(B, A, 2)
+        r = compute_reward(robot_b, sweep(obs), sweep(human_v), acts,
+                           sweep(t_next), cfg)
+        next_robot = propagate_full_state(robot_b, acts, dt,
+                                          cfg.robot_kinematics)
+        next_obs = torch.cat([T.position(obs) + human_v * dt, human_v,
+                              obs[..., T.RADIUS:]], -1)
+        return r.reward, next_robot, next_obs

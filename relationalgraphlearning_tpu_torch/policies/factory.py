@@ -1,10 +1,7 @@
-"""Policy registry (port of ``relationalgraphlearning_tpu/policies/factory.py``).
-
-The port has MP-RGL and the three robot policies without parameters. The
-one-step value policies of the reference (``cadrl``, ``sarl``, ``lstm_rl``,
-``gcn``, ``rgl``) are not ported yet (ROADMAP Queue A 9); their names raise
-an error that says so.
-"""
+"""Policy registry (port of ``relationalgraphlearning_tpu/policies/factory.py``):
+MP-RGL, the one-step value policies (``cadrl``, ``sarl``, ``lstm_rl``,
+``gcn`` and its alias ``rgl``) and the three robot policies without
+parameters."""
 
 from __future__ import annotations
 
@@ -12,27 +9,27 @@ from relationalgraphlearning_tpu_torch.configs.base import (
     EnvConfig, PolicyConfig)
 from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
     ModelPredictiveRLPolicy)
+from relationalgraphlearning_tpu_torch.policies.one_step import (
+    CADRLPolicy, GCNPolicy, LstmRLPolicy, SARLPolicy)
 from relationalgraphlearning_tpu_torch.policies.robot_policies import (
     LinearPolicy, ORCARobotPolicy, SocialForceRobotPolicy)
 
 policy_factory = {
     "model_predictive_rl": ModelPredictiveRLPolicy,
+    "cadrl": CADRLPolicy,
+    "sarl": SARLPolicy,
+    "lstm_rl": LstmRLPolicy,
+    "gcn": GCNPolicy,
+    "rgl": GCNPolicy,  # the model-free RGL one-step policy
     "orca": ORCARobotPolicy,
     "linear": LinearPolicy,
     "socialforce": SocialForceRobotPolicy,
 }
 
-NOT_PORTED = ("cadrl", "sarl", "lstm_rl", "gcn", "rgl")
-
 
 def make_policy(name: str, policy_cfg: PolicyConfig, env_cfg: EnvConfig,
                 **kwargs):
     """The policy ``name`` on ``device`` (a keyword; default the card)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} is not ported to PyTorch yet: the one-step "
-            "policies wait for ROADMAP Queue A 9; ported: "
-            f"{sorted(policy_factory)}")
     try:
         cls = policy_factory[name]
     except KeyError:

@@ -192,6 +192,11 @@ class Explorer:
     def _act(self, states: EnvState, epsilon=0.0,
              generator: Optional[torch.Generator] = None,
              draws: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+        if getattr(self.policy, "query_env", False):
+            # the privileged lookahead: the policy reads the env's own crowd
+            # step for s' (the reference's query_env)
+            return self.policy.predict_env(self.env, states, epsilon,
+                                           generator, draws)
         js = T.JointState(states.robot, T.observable(states.humans))
         if draws is None:
             return self.policy.predict(js, epsilon, generator)

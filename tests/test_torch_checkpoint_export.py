@@ -1,5 +1,6 @@
-"""The PyTorch port's MP-RGL weights and per-case references, exported from
-the JAX package's committed checkpoints.
+"""The PyTorch port's weights and per-case references, exported from the JAX
+package's committed checkpoints and records (MP-RGL and the paper's
+baselines).
 
 The port imports neither JAX nor orbax, so it cannot read
 ``results/<model>/rl_model_best``. This file, which may import both, does:
@@ -16,8 +17,16 @@ CLI does (``training/train_loop.build``, ``trainer.init``,
 - ``relationalgraphlearning_tpu_torch/checkpoints/<run>_test_reference.npz``
   for each evaluated configuration: the outcome (``OUTCOME_*``), the steps
   of a successful case (-1 otherwise) and the discounted return of each of
-  the 500 test cases, from the JAX package's ``Explorer.run_cases`` called
-  on one case at a time (one jit, 500 calls; ``--runs`` picks a subset).
+  the 500 test cases (``--runs`` picks a subset). The MP-RGL runs' come
+  from the JAX package's ``Explorer.run_cases`` called on one case at a
+  time (one jit, 500 calls); the baselines' from one program over all 500
+  cases, ``run_cases``'s own scan with its final carry kept, which is the
+  program whose reduction the committed record is: its per-case results
+  add up to that record to the last digit, while one case a call flips 2
+  of ``orca_th10``'s 500 outcomes (ORCA's float32 LP near a tie). A run
+  applies the JAX CLI's overrides (``--human_num``, the planner's,
+  ``--orca_time_horizon``) after the restore, as that CLI does; ORCA runs
+  restore nothing (an untrained policy).
 
 As a test it restores the checkpoints again (from a copy, so nothing under
 ``results/`` is touched) and holds every array of the committed ``.npz``
@@ -41,15 +50,37 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 CKPT_DIR = ROOT / "relationalgraphlearning_tpu_torch" / "checkpoints"
-MODELS = ("mprl_td", "mp_unicycle_anneal")
-# evaluated configuration -> (model, planner overrides, committed record)
-RUNS = {
-    "mprl_td": ("mprl_td", {}, "eval_test.json"),
-    "mprl_td_d1": ("mprl_td", {"planning_depth": 1}, "eval_test_d1.json"),
-    "mprl_td_d2_w4": ("mprl_td", {"planning_depth": 2, "planning_width": 4},
-                      "eval_test_d2_w4.json"),
-    "mp_unicycle_anneal": ("mp_unicycle_anneal", {}, "eval_test.json"),
+# model -> (policy, parameter count)
+MODELS = {
+    "mprl_td": ("model_predictive_rl", 33_506),
+    "mp_unicycle_anneal": ("model_predictive_rl", 33_506),
+    "cadrl": ("cadrl", 27_401),
+    "sarl": ("sarl", 96_502),
+    "sarl_om": ("sarl", 103_702),
+    "lstm_rl": ("lstm_rl", 45_451),
+    "rgl": ("rgl", 22_813),
 }
+# evaluated configuration -> (model directory, policy, the JAX CLI's
+# overrides, committed record)
+RUNS = {
+    "mprl_td": ("mprl_td", "model_predictive_rl", {}, "eval_test.json"),
+    "mprl_td_d1": ("mprl_td", "model_predictive_rl", {"planning_depth": 1},
+                   "eval_test_d1.json"),
+    "mprl_td_d2_w4": ("mprl_td", "model_predictive_rl",
+                      {"planning_depth": 2, "planning_width": 4},
+                      "eval_test_d2_w4.json"),
+    "mp_unicycle_anneal": ("mp_unicycle_anneal", "model_predictive_rl", {},
+                           "eval_test.json"),
+    "cadrl": ("cadrl", "cadrl", {"human_num": 5}, "eval_test.json"),
+    "sarl": ("sarl", "sarl", {}, "eval_test.json"),
+    "sarl_om": ("sarl_om", "sarl", {}, "eval_test.json"),
+    "lstm_rl": ("lstm_rl", "lstm_rl", {}, "eval_test.json"),
+    "rgl": ("rgl", "rgl", {}, "eval_test.json"),
+    "orca": ("orca", "orca", {}, "eval_test.json"),
+    "orca_th10": ("orca_th10", "orca", {"orca_time_horizon": 10.0},
+                  "eval_test_th10.json"),
+}
+PLANNER = ("planning_depth", "planning_width")
 
 
 def _jax():
@@ -61,25 +92,56 @@ def _jax():
     return jax
 
 
-def restore(model: str, overrides: dict | None = None):
+def configure(model: str, overrides: dict | None = None):
+    """The JAX ``Config`` of ``results/<model>`` (its ``config.py``, else
+    the defaults) with the CLI's ``overrides`` -> (config, policy kwargs)."""
+    _jax()
+    from relationalgraphlearning_tpu.configs.base import (
+        Config, load_config_module)
+
+    path = ROOT / "results" / model / "config.py"
+    config = load_config_module(str(path)) if path.exists() else Config()
+    over = dict(overrides or {})
+    if "human_num" in over:
+        config = dataclasses.replace(config, env=dataclasses.replace(
+            config.env, sim=dataclasses.replace(
+                config.env.sim, human_num=over.pop("human_num"))))
+    planner = {k: over.pop(k) for k in PLANNER if k in over}
+    if planner:
+        config = dataclasses.replace(config, policy=dataclasses.replace(
+            config.policy, mprl=dataclasses.replace(
+                config.policy.mprl, **planner)))
+    kwargs = {}
+    if "orca_time_horizon" in over:
+        kwargs["time_horizon"] = over.pop("orca_time_horizon")
+    assert not over, over
+    return config, kwargs
+
+
+def restore(model: str, policy: str | None = None,
+            overrides: dict | None = None):
     """(config, artifacts, state) of ``results/<model>/rl_model_best``,
-    restored from a temporary copy of the checkpoint."""
+    restored from a temporary copy of the checkpoint into a template built
+    from the model's own config, then rebuilt with ``overrides``. A model
+    with no checkpoint (ORCA) gets ``state`` None."""
     jax = _jax()
-    from relationalgraphlearning_tpu.configs.base import load_config_module
     from relationalgraphlearning_tpu.training import checkpoint as ckpt
     from relationalgraphlearning_tpu.training.train_loop import build
 
-    config = load_config_module(str(ROOT / "results" / model / "config.py"))
-    if overrides:
-        config = dataclasses.replace(config, policy=dataclasses.replace(
-            config.policy, mprl=dataclasses.replace(
-                config.policy.mprl, **overrides)))
-    art = build(config, "model_predictive_rl")
-    state = art.trainer.init(art.policy.init_params(jax.random.PRNGKey(0)))
-    with tempfile.TemporaryDirectory() as tmp:
-        copy = Path(tmp) / "rl_model_best"
-        shutil.copytree(ROOT / "results" / model / "rl_model_best", copy)
-        state = ckpt.restore(str(copy), state)
+    policy = policy or MODELS[model][0]
+    src = ROOT / "results" / model / "rl_model_best"
+    state = None
+    if src.exists():
+        config, kwargs = configure(model)
+        art = build(config, policy, policy_kwargs=kwargs)
+        state = art.trainer.init(
+            art.policy.init_params(jax.random.PRNGKey(0)))
+        with tempfile.TemporaryDirectory() as tmp:
+            copy = Path(tmp) / "rl_model_best"
+            shutil.copytree(src, copy)
+            state = ckpt.restore(str(copy), state)
+    config, kwargs = configure(model, overrides)
+    art = build(config, policy, policy_kwargs=kwargs)
     return config, art, state
 
 
@@ -91,25 +153,71 @@ def flat_params(params) -> dict:
             for path, leaf in leaves}
 
 
+ONE_CASE_A_CALL = ("mprl_td", "mprl_td_d1", "mprl_td_d2_w4",
+                   "mp_unicycle_anneal")
+
+
+def _final_carry(explorer, params, phase_offset: int, case_indices, key):
+    """``Explorer.run_cases``'s rollout with each case's outcome (a case not
+    done a timeout), steps and discounted return kept."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from relationalgraphlearning_tpu import types as T
+    from relationalgraphlearning_tpu.envs.scenarios import case_key
+
+    states, _ = jax.vmap(explorer.env.reset)(jax.vmap(
+        lambda i: case_key(explorer.base_seed, phase_offset, i))(
+            case_indices))
+    eps = jnp.asarray(0.0)
+
+    def body(carry, _):
+        states, key, ep_ret = carry
+        key, sub = jax.random.split(key)
+        out = explorer._step(states, explorer._act(params, states, sub, eps))
+        gamma_t = explorer.gamma ** (
+            states.step.astype(jnp.float32) * explorer.cfg.time_step
+            * states.robot[..., T.VPREF])
+        ep_ret = ep_ret + jnp.where(~states.done, gamma_t * out.reward, 0.0)
+        return (out.state, key, ep_ret), None
+
+    init = (states, key, jnp.zeros(case_indices.shape[0]))
+    (final, _, ep_ret), _ = jax.lax.scan(body, init, None,
+                                         explorer.cfg.max_steps)
+    return (jnp.where(final.done, final.outcome, T.OUTCOME_TIMEOUT),
+            final.step, ep_ret)
+
+
 def per_case_reference(run: str) -> dict:
     """Outcome, steps (success only, else -1) and discounted return of each
-    test case from ``Explorer.run_cases`` on one case at a time."""
+    test case: from ``Explorer.run_cases`` on one case at a time for the
+    runs of ``ONE_CASE_A_CALL``, else from one program over all cases."""
     jax = _jax()
     import jax.numpy as jnp
 
     from relationalgraphlearning_tpu import types as T
 
-    model, overrides, _ = RUNS[run]
-    config, art, state = restore(model, overrides)
+    model, policy, overrides, _ = RUNS[run]
+    config, art, state = restore(model, policy, overrides)
+    params = None if state is None else state.params
     sim = config.env.sim
+    n = sim.test_size
+    if run not in ONE_CASE_A_CALL:
+        outcome, steps, ret = map(np.asarray, jax.jit(
+            lambda p, idx: _final_carry(art.explorer, p, sim.test_seed_offset,
+                                        idx, jax.random.PRNGKey(1)))(
+                params, jnp.arange(n)))
+        success = outcome == T.OUTCOME_REACH_GOAL
+        return dict(outcome=outcome.astype(np.int8),
+                    steps=np.where(success, steps, -1).astype(np.int16),
+                    ret=ret.astype(np.float32))
     ev = jax.jit(lambda p, idx: art.explorer.run_cases(
         p, sim.test_seed_offset, idx, jax.random.PRNGKey(1)))
-    n = sim.test_size
     outcome = np.zeros(n, np.int8)
     steps = np.full(n, -1, np.int16)
     ret = np.zeros(n, np.float32)
     for i in range(n):
-        s = ev(state.params, jnp.asarray([i]))
+        s = ev(params, jnp.asarray([i]))
         if float(s.success_rate) == 1.0:
             outcome[i] = T.OUTCOME_REACH_GOAL
             steps[i] = round(float(s.avg_nav_time) / config.env.time_step)
@@ -132,7 +240,7 @@ def test_exported_weights_equal_the_checkpoint(model):
         assert got[k].dtype == a.dtype == np.float32, k
         assert got[k].shape == a.shape, k
         assert np.array_equal(got[k], a), k
-    assert sum(a.size for a in want.values()) == 33_506
+    assert sum(a.size for a in want.values()) == MODELS[model][1]
 
 
 @pytest.mark.parametrize("run", sorted(RUNS))
@@ -150,7 +258,7 @@ def summary(run: str) -> dict:
     """The per-case records of ``run`` reduced as the reference's
     ``EvalStats`` (rates, nav time over successes, mean return), beside the
     committed record of the same evaluation."""
-    model, _, record = RUNS[run]
+    model, _, _, record = RUNS[run]
     with np.load(CKPT_DIR / f"{run}_test_reference.npz") as z:
         outcome, steps, ret = z["outcome"], z["steps"], z["ret"]
     success = outcome == 1
@@ -165,10 +273,11 @@ def summary(run: str) -> dict:
 
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_per_case_reference_adds_up_to_the_committed_record(run):
-    """The one-case-a-call records give the committed rates exactly; the
-    reference's batched program and its one-case program may take another
-    step in a case or two (nav time within 2 steps' worth over ~480
-    successes) and differ in the returns' last digits."""
+    """The per-case records give the committed rates exactly; the
+    reference's batched program and its one-case program (the MP-RGL
+    records) may take another step in a case or two (nav time within 2
+    steps' worth over ~480 successes) and differ in the returns' last
+    digits."""
     s = summary(run)
     for k in ("success_rate", "collision_rate", "timeout_rate"):
         assert abs(s[k][0] - s[k][1]) < 1e-6, (k, s[k])
@@ -183,6 +292,9 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", nargs="*", default=sorted(RUNS),
                     choices=sorted(RUNS),
                     help="evaluated configurations to write references for")
+    ap.add_argument("--models", nargs="*", default=list(MODELS),
+                    choices=list(MODELS),
+                    help="models to write weights for")
     ap.add_argument("--no-weights", action="store_true",
                     help="write the per-case references only")
     ap.add_argument("--summary", action="store_true",
@@ -199,7 +311,7 @@ def main(argv=None) -> int:
                  "check)")
     CKPT_DIR.mkdir(exist_ok=True)
     if not args.no_weights:
-        for model in MODELS:
+        for model in args.models:
             _, _, state = restore(model)
             np.savez(CKPT_DIR / f"{model}.npz", **flat_params(state.params))
             print(f"wrote {model}.npz", flush=True)

@@ -136,3 +136,35 @@ def test_test_cli_evaluates_a_port_checkpoint(tmp_path):
     # a directory without the port's checkpoint keeps the exported weights
     assert test_cli.weights_of(str(ROOT / "results" / "mprl_td")).endswith(
         "mprl_td.npz")
+
+
+def test_cli_trains_a_one_step_baseline_and_evaluates_it(tmp_path):
+    """``--policy sarl``: imitation and RL with the value-only trainer at
+    toy counts, then the evaluation CLI loads the port's ``rl_model_best``
+    and its record equals ``run_cases`` of the same weights."""
+    from relationalgraphlearning_tpu_torch.policies.factory import (
+        make_policy)
+
+    cfg = tmp_path / "sarl_config.py"
+    cfg.write_text(TOY_CONFIG.replace(
+        "policy=PolicyConfig(mprl=MPRLConfig(planning_depth=2,\n"
+        "                                            planning_width=2)),",
+        'policy=PolicyConfig(name="sarl"),'))
+    out = tmp_path / "sarl"
+    result = train_cli.main(["--policy", "sarl", "--config", str(cfg),
+                             "--output_dir", str(out), *FLAGS])
+    assert result["episodes"] >= 6 and result["sp_loss"] == 0.0
+    saved = ckpt.load(str(out / "rl_model_best"))
+    assert any(k.startswith("model.attention.") for k in saved["params"])
+
+    record = test_cli.main(["--policy", "sarl", "--model_dir", str(out),
+                            "--test_size", "4", "--device", "cpu"])
+    assert record["checkpoint"] == "rl_model_best"
+    config = load_config_module(str(out / "config.py"))
+    policy = make_policy("sarl", config.policy, config.env, device="cpu")
+    policy.networks.load_state_dict(saved["params"])
+    explorer = ex.Explorer(CrowdSim(config.env, device="cpu"), policy,
+                           config.policy.gamma)
+    want = explorer.run_cases(config.env.sim.test_seed_offset, range(4))
+    assert record["success_rate"] == float(want.success_rate)
+    assert record["return"] == float(want.avg_return)

@@ -4,9 +4,13 @@ in the A/B harness's chain; the captured CUDA graphs of the chain, the
 harness and both rollouts, each held to its eager run; and the MP-RGL
 evaluation path (batched CrowdSim, planner, ``Explorer.run_cases``) on the
 card against the CPU, its captured step against its eager run, and 32 test
-cases against the JAX package's per-case records; and MP-RGL training
+cases against the JAX package's per-case records; MP-RGL training
 (the captured SGD step and collection step, each held to its eager run
-bit for bit, and a ``debug`` train on the card).
+bit for bit, and a ``debug`` train on the card); and the one-step
+baselines (CADRL, SARL, SARL with occupancy maps, LSTM-RL, the model-free
+RGL): their action values on the card against the CPU, their captured
+rollouts (with the env-queried lookahead too) against eager ones, and
+SARL's value-only training step and collection captured against eager.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -930,3 +934,132 @@ def test_cuda_debug_train(dev, tmp_path):
     assert (tmp_path / "metrics.jsonl").is_file()
     _states_equal(live, tckpt.load(str(tmp_path / "rl_model"),
                                    map_location=dev), "rl_model")
+
+
+# ------------------------------------------------------ one-step baselines
+BASELINES = {"sarl": "sarl", "sarl_om": "sarl", "lstm_rl": "lstm_rl",
+             "cadrl": "cadrl", "rgl": "rgl"}
+
+
+def _baseline(device, model, query_env=False):
+    """(config, env, policy, explorer) of ``results/<model>`` at 5 humans
+    with the exported weights."""
+    import dataclasses
+
+    from relationalgraphlearning_tpu_torch.policies.factory import (
+        make_policy)
+
+    config = load_config_module(str(ROOT / "results" / model / "config.py"))
+    config = dataclasses.replace(
+        config, env=dataclasses.replace(config.env, sim=dataclasses.replace(
+            config.env.sim, human_num=5)),
+        policy=dataclasses.replace(config.policy, query_env=query_env))
+    env = CrowdSim(config.env, device=device)
+    policy = make_policy(BASELINES[model], config.policy, config.env,
+                         device=device)
+    policy.load_flax(checkpoints.load_flax_tree(model))
+    return config, env, policy, Explorer(env, policy, config.policy.gamma)
+
+
+@pytest.mark.parametrize("model", list(BASELINES))
+def test_cuda_baseline_action_values_match_the_cpu(dev, model):
+    """The same states (10 steps into 64 test cases) on the card and on the
+    CPU: every action's one-step return (rtol 1e-5, atol 1e-5), with the
+    humans at constant velocity and from the env's lookahead (atol 1e-4:
+    ORCA sets the humans there), and the choice where the top two differ by
+    more than 1e-4."""
+    config, env_c, pol_c, ex_c = _baseline("cpu", model)
+    _, env_g, pol_g, _ = _baseline(dev, model)
+    carry = ex_c.initial_carry(config.env.sim.test_seed_offset, range(64))
+    with torch.no_grad():
+        for _ in range(10):
+            carry = EvalCarry(*ex_c.eval_step(*carry))
+    states = carry.states
+    states_g = type(states)(*(t.to(dev) for t in states))
+    js_c = TT.JointState(states.robot, TT.observable(states.humans))
+    js_g = TT.JointState(*(t.to(dev) for t in js_c))
+    ret_c, ret_g = pol_c.action_values(js_c), pol_g.action_values(js_g)
+    torch.testing.assert_close(ret_g.cpu(), ret_c, rtol=1e-5, atol=1e-5)
+    clear = _top2_gap(ret_c) > 1e-4
+    assert clear.sum() >= 32
+    assert torch.equal(pol_g.predict(js_g).cpu()[clear],
+                       pol_c.predict(js_c)[clear])
+    env_c_ret = pol_c.action_values_env(env_c, states)
+    env_g_ret = pol_g.action_values_env(env_g, states_g)
+    torch.testing.assert_close(env_g_ret.cpu(), env_c_ret, rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("model,query_env", [
+    ("sarl", False), ("sarl_om", False), ("lstm_rl", False),
+    ("cadrl", False), ("rgl", False), ("sarl", True)])
+def test_cuda_baseline_captured_rollout_replays_eager(dev, model, query_env):
+    """64 test cases for all 100 steps: the graphed rollout equals the
+    eager loop bit for bit and its graph launches none of kernels #1-#7;
+    at most one of the 64 outcomes differs from the JAX package's
+    per-case record (the 500-case bound of chip_smoke.py is 15)."""
+    config, _, _, ex = _baseline(dev, model, query_env)
+    offset = config.env.sim.test_seed_offset
+    with torch.no_grad():
+        eager = ex.rollout(offset, range(64), graphed=False)
+        graphed = ex.rollout(offset, range(64), graphed=True)
+    (graph,) = ex._graphs.values()
+    assert not any(graph.launches.values())
+    for name, a, b in zip(eager._fields, eager, graphed):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
+    if not query_env:  # the records are of the constant-velocity lookahead
+        ref = checkpoints.load_test_reference(model)["outcome"][:64]
+        assert (eager.case_outcome.cpu().numpy() != ref).sum() <= 1
+
+
+def _sarl_artifacts(dev, seed=0):
+    config = load_config_module(str(ROOT / "results" / "sarl" / "config.py"))
+    art = ttl.build(config, "sarl", seed, dev)
+    art.policy.init_params(torch.Generator().manual_seed(seed))
+    art.trainer.update_target()
+    return config, art
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_cuda_vnrl_captured_sgd_step_replays_eager(dev, optimizer):
+    """SARL's value-only step (``VNRLTrainer``): 1 and then 5 captured SGD
+    steps equal as many eager ones bit for bit."""
+    config, art = _sarl_artifacts(dev)
+    trainer = art.trainer
+    trainer.set_learning_rate(0.01, optimizer)
+    buf = trb.create(4096, config.env.sim.human_num, device=dev)
+    g = torch.Generator().manual_seed(0)
+    n = 3000
+    trb.push(buf, trb.Transition(
+        torch.randn(n, 9, generator=g), torch.randn(n, 5, 5, generator=g),
+        torch.randn(n, generator=g), torch.randn(n, generator=g),
+        torch.randn(n, 9, generator=g), torch.randn(n, 5, 5, generator=g),
+        (torch.rand(n, generator=g) < 0.8).float(),
+        (torch.rand(n, generator=g) < 0.2).float()))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for steps in (1, 5):
+        idx = trb.sample_indices(buf, gen, (steps, 100))
+        before = trainer.state_dict()
+        trainer.optimize(buf, idx, graphed=False)
+        eager = trainer.state_dict()
+        trainer.load_state(before)
+        trainer.optimize(buf, idx, graphed=True)
+        _states_equal(eager, trainer.state_dict(), f"{steps} steps")
+
+
+def test_cuda_sarl_captured_collection_replays_eager(dev):
+    """64 captured collection steps of SARL at ε = 0.5 and B=16 equal 64
+    eager ones bit for bit from the same carry and draws."""
+    config, art = _sarl_artifacts(dev)
+    offset = config.env.sim.train_seed_offset
+    gen = torch.Generator(device=dev).manual_seed(2)
+    carry = art.explorer.init_carry(16, offset)
+    draws = art.explorer.draws(gen, 64, 16)
+    eager = art.explorer.collect(carry, 64, offset, 0.5, draws,
+                                 graphed=False)
+    graphed = art.explorer.collect(carry, 64, offset, 0.5, draws,
+                                   graphed=True)
+    for part, a, b in zip(("carry", "trajectory"), eager, graphed):
+        for name, x, y in zip(a._fields, a, b):
+            torch.testing.assert_close(y, x, rtol=0, atol=0,
+                                       msg=f"{part}.{name}")

@@ -7,8 +7,13 @@ record (``checkpoints/<run>_test_reference.npz``, the JAX package's
 ``run_cases`` one case at a time), each return agrees at 1e-5, and the
 ``EvalStats`` of those cases agree with the reference's ``run_cases`` on
 the same cases at atol 1e-5 (sums over cases in another order). A holonomic
-policy in a unicycle env exercises the action conversion.
+policy in a unicycle env exercises the action conversion. SARL with the
+env-queried lookahead (``query_env``, the policy reading the env's own crowd
+step) takes the same decisions as the reference's on 8 cases: outcomes and
+steps equal, the statistics at atol 1e-5.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +62,38 @@ def test_run_cases_matches_jax_case_by_case(run, model, overrides, cases):
     want = jax.jit(lambda p: jex.run_cases(
         p, offset, jnp.arange(cases), jax.random.PRNGKey(1)))(params)
     _stats_close(ex.stats(final), want)
+
+
+def test_query_env_rollout_matches_jax():
+    from relationalgraphlearning_tpu.policies.factory import (
+        make_policy as jmake)
+    from relationalgraphlearning_tpu_torch.policies.factory import (
+        make_policy)
+
+    cfg_j, cfg_t = (dataclasses.replace(c, policy=dataclasses.replace(
+        c.policy, query_env=True)) for c in configs("sarl"))
+    tree = checkpoints.load_flax_tree("sarl")
+    pol_j = jmake("sarl", cfg_j.policy, cfg_j.env)
+    pol_t = make_policy("sarl", cfg_t.policy, cfg_t.env,
+                        device="cpu").load_flax(tree)
+    assert pol_t.query_env
+    offset, cases = cfg_t.env.sim.test_seed_offset, 8
+    ex = Explorer(CrowdSim(cfg_t.env, device="cpu"), pol_t,
+                  cfg_t.policy.gamma)
+    final = ex.rollout(offset, range(cases))
+    jex = JExplorer(JCrowdSim(cfg_j.env), pol_j, cfg_j.policy.gamma)
+    run = jax.jit(lambda p, i: jex.run_cases(p, offset, i,
+                                            jax.random.PRNGKey(1)))
+    params = jax.tree.map(jnp.asarray, tree)
+    for i in range(cases):  # one case a call: its outcome and steps
+        s = run(params, jnp.asarray([i]))
+        outcome = (JT.OUTCOME_REACH_GOAL if float(s.success_rate) == 1 else
+                   JT.OUTCOME_COLLISION if float(s.collision_rate) == 1
+                   else JT.OUTCOME_TIMEOUT)
+        assert int(final.case_outcome[i]) == outcome, i
+        if outcome == JT.OUTCOME_REACH_GOAL:
+            assert int(final.step[i]) == round(float(s.avg_nav_time) / 0.25)
+    _stats_close(ex.stats(final), run(params, jnp.arange(cases)))
 
 
 class _Straight:

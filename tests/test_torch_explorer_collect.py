@@ -8,8 +8,8 @@
   ``test_torch_scenarios.py`` holds the scenarios.
 - ``collect`` at B=4 over 12 steps, with a 2 s time limit (8 steps) so
   that every env ends an episode and resets to its next case: with the
-  ORCA demonstrator and with MP-RGL at ε = 0 (the committed ``mprl_td``
-  weights). Every trajectory field and the carry agree at 1e-5, 1e-4 where
+  ORCA demonstrator, with MP-RGL at ε = 0 (the committed ``mprl_td``
+  weights) and with SARL at ε = 0 (the committed ``sarl`` weights). Every trajectory field and the carry agree at 1e-5, 1e-4 where
   ORCA's LP sets the value (the humans' motion, and the demonstrator's
   actions), as ``test_torch_orca.py`` states; flags, outcomes, step and
   case counters exactly.
@@ -31,11 +31,15 @@ from mprl_parity import two_torch_threads  # noqa: F401
 from mprl_parity import configs, policies
 from relationalgraphlearning_tpu.envs import CrowdSim as JCrowdSim
 from relationalgraphlearning_tpu.envs.scenarios import case_key
+from relationalgraphlearning_tpu.policies.factory import (
+    make_policy as jmake)
 from relationalgraphlearning_tpu.policies.robot_policies import (
     ORCARobotPolicy as JORCA)
 from relationalgraphlearning_tpu.training import replay_buffer as jrb
 from relationalgraphlearning_tpu.training.explorer import Explorer as JExplorer
+from relationalgraphlearning_tpu_torch import checkpoints
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
+from relationalgraphlearning_tpu_torch.policies.factory import make_policy
 from relationalgraphlearning_tpu_torch.policies.robot_policies import (
     ORCARobotPolicy)
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
@@ -60,8 +64,14 @@ def _configs(model="mprl_td"):
 
 
 def _explorers(kind):
-    cfg_j, cfg_t = _configs()
-    if kind == "orca":
+    cfg_j, cfg_t = _configs("sarl" if kind == "sarl" else "mprl_td")
+    if kind == "sarl":
+        tree = checkpoints.load_flax_tree("sarl")
+        pol_j = jmake("sarl", cfg_j.policy, cfg_j.env)
+        params = jax.tree.map(jnp.asarray, tree)
+        pol_t = make_policy("sarl", cfg_t.policy, cfg_t.env,
+                            device="cpu").load_flax(tree)
+    elif kind == "orca":
         safety = cfg_t.train.orca_safety_space
         pol_j, params = JORCA(cfg_j.policy, cfg_j.env, safety), None
         pol_t = ORCARobotPolicy(cfg_t.policy, cfg_t.env, safety, device="cpu")
@@ -101,7 +111,7 @@ def test_case_table_is_the_references_reset():
                                   np.asarray(states.robot))
 
 
-@pytest.mark.parametrize("kind", ["orca", "mprl"])
+@pytest.mark.parametrize("kind", ["orca", "mprl", "sarl"])
 def test_collect_with_auto_reset_matches_jax(kind):
     cfg_t, jex, params, tex = _explorers(kind)
     offset = cfg_t.env.sim.train_seed_offset

@@ -36,7 +36,8 @@ for leaf in ("tools.ab_kernel", "types", "geometry", "checkpoints",
              "policies.robot_policies", "policies.factory",
              "training.replay_buffer", "training.trainer",
              "training.checkpoint", "training.metrics",
-             "training.train_loop", "cli.train"):
+             "training.train_loop", "cli.train", "models.baseline_nets",
+             "policies.one_step"):
     assert "relationalgraphlearning_tpu_torch." + leaf in names, leaf
 import chip_smoke
 bad = sorted(m for m in sys.modules

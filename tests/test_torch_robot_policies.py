@@ -99,9 +99,20 @@ def test_registry_names_what_is_ported():
                                       device="cpu"), cls)
     assert make_policy("model_predictive_rl", cfg.policy, cfg.env,
                        device="cpu").trainable
-    for name in ("cadrl", "sarl", "lstm_rl", "gcn", "rgl"):
-        with pytest.raises(NotImplementedError, match="Queue A 9"):
-            make_policy(name, cfg.policy, cfg.env, device="cpu")
+    from relationalgraphlearning_tpu.policies.factory import (
+        policy_factory as jax_factory)
+    from relationalgraphlearning_tpu_torch.policies import one_step
+    from relationalgraphlearning_tpu_torch.policies.factory import (
+        policy_factory)
+
+    assert sorted(policy_factory) == sorted(jax_factory)
+    for name, cls in (("cadrl", one_step.CADRLPolicy),
+                      ("sarl", one_step.SARLPolicy),
+                      ("lstm_rl", one_step.LstmRLPolicy),
+                      ("gcn", one_step.GCNPolicy),
+                      ("rgl", one_step.GCNPolicy)):
+        pol = make_policy(name, cfg.policy, cfg.env, device="cpu")
+        assert isinstance(pol, cls) and pol.trainable
     with pytest.raises(KeyError):
         make_policy("nope", cfg.policy, cfg.env, device="cpu")
 

@@ -247,3 +247,69 @@ def test_clip_is_optax_not_torch_clip_grad_norm():
     small = [torch.full((4,), 0.5)]
     ttr.clip_grad_norm(small, 10.0)
     assert torch.equal(small[0], torch.full((4,), 0.5))
+
+
+def test_vnrl_on_sarl_matches_jax():
+    """``VNRLTrainer`` on SARL (the committed weights): the loss, the
+    gradients through the rotation and the attention, one SGD step and one
+    Adam step (from the reference's gradients, as above) and the moments
+    after them, against the JAX package's ``VNRLTrainer``."""
+    from relationalgraphlearning_tpu.policies.factory import (
+        make_policy as jmake)
+    from relationalgraphlearning_tpu_torch import checkpoints
+    from relationalgraphlearning_tpu_torch.convert import sarl_from_flax
+    from relationalgraphlearning_tpu_torch.policies.factory import (
+        make_policy)
+
+    cfg_j, cfg_t = configs("sarl")
+    tree = checkpoints.load_flax_tree("sarl")
+    params = jax.tree.map(jnp.asarray, tree)
+    pol_j = jmake("sarl", cfg_j.policy, cfg_j.env)
+    jtrainer = jtr.VNRLTrainer(pol_j)
+    pol_t = make_policy("sarl", cfg_t.policy, cfg_t.env,
+                        device="cpu").load_flax(tree)
+    trainer = ttr.VNRLTrainer(pol_t)
+    b = _batch(2)
+    jb, tb = _jax_batch(b), _torch_batch(b)
+
+    def close(got: dict, flax_tree, what):
+        want = {f"model.{k}": v
+                for k, v in sarl_from_flax(_np_tree(flax_tree)).items()}
+        assert set(got) == set(want), what
+        for k in want:
+            np.testing.assert_allclose(got[k].detach().numpy(),
+                                       want[k].numpy(), **TOL,
+                                       err_msg=f"{what}: {k}")
+
+    grads_j, aux_j = jax.grad(jtrainer.loss_fn, has_aux=True)(
+        params, jb, jnp.asarray(1.0))
+    aux = trainer.compute_grads(tb, torch.tensor(1.0))
+    np.testing.assert_allclose(float(aux.value_loss),
+                               float(aux_j.value_loss), **TOL)
+    assert float(aux.predictor_loss) == 0.0
+    close(_grads(trainer), grads_j, "gradients")
+    start = trainer.state_dict()
+    for name, lr in (("sgd", 0.01), ("adam", 1e-3)):
+        jtrainer.set_learning_rate(lr, name)
+        state = jtr.TrainState(params, params, jtrainer.tx.init(params))
+        state, _ = jtrainer.train_step(state, jb, jnp.asarray(1.0))
+        trainer.load_state(start)
+        trainer.set_learning_rate(lr, name)
+        if name == "sgd":
+            trainer.train_step(tb, torch.tensor(1.0))
+        else:
+            want = {f"model.{k}": v for k, v in
+                    sarl_from_flax(_np_tree(grads_j)).items()}
+            with torch.no_grad():
+                for n, p in zip(trainer.names, trainer.params):
+                    p.grad.copy_(want[n])
+            trainer.apply_grads()
+        close(dict(trainer.net.named_parameters()), state.params,
+              f"params after one {name} step")
+        inner = state.opt_state[1]
+        moments = ({"momentum_buffer": inner[0].trace} if name == "sgd"
+                   else {"exp_avg": inner[0].mu, "exp_avg_sq": inner[0].nu})
+        for key, t in moments.items():
+            close({n: trainer.optimizer.state[p][key]
+                   for n, p in zip(trainer.names, trainer.params)}, t,
+                  f"{name} {key}")

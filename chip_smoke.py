@@ -112,7 +112,26 @@ Phases, each of which exits non-zero on failure:
     steps against eager ones (the demonstrator, and SARL at ε = 0.5), and
     ``train_loop.train`` in its debug shrink graphed and eager, with phase
     9's checks. None of kernels #1-#7 may launch.
-11. Print the ``kernels`` line, the card line and the last line.
+11. The node-partitioned paths of ``parallel/`` on D ranks run as threads
+    on the one card (``LocalComm``, D = 1, 2, 4, 8), the reference's
+    ``bench_scaling.py`` protocol at full width (``GCNConfig``, the value
+    head 32-100-100-1): the ring, all-gather and block-halo SparseRGL
+    forwards at n = 2048·D, K=16, 8 chained forwards (block halo: sorted,
+    B=128, C=448, packed masks, the least halo a multiple of 8), each D in
+    turn, Medges/s and the efficiency against D=1, each forward held to the
+    one-device SparseRGL at rtol 2e-4 / atol 2e-5 and kernel #1 launched
+    exactly D x 2 x 8 times on a block-halo row (none on the others); kernel
+    #2 through ``block_halo_attention`` with a value table at D=4 (D
+    launches, equal to its plain version, timed per launch with #1 at the
+    same shapes); the partitioned mega-crowd rollout at n = 2048·D (n_cap
+    2688, B=128, C=512, K=16, K_orca=10, 16 steps, R=8): agent-steps/s,
+    window coverage 1, no overflow, none lost, every agent kept, #1
+    launched D x 2 x 16 times, |vmean| within 1e-3 of the one-device loop
+    (max |pos| difference reported); the reference's 600-agent D=4 case
+    against the one-device loop at atol 1e-4; and the D=2 block forward as
+    two ``torch.distributed`` processes (gloo) sharing the card, equal to
+    the threads' result bit for bit. One card: these rates are plumbing.
+12. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -120,6 +139,7 @@ Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import shutil
@@ -139,14 +159,23 @@ from relationalgraphlearning_tpu_torch.cli import test as eval_cli
 from relationalgraphlearning_tpu_torch.configs.base import (
     GCNConfig, load_config_module)
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
-from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
+from relationalgraphlearning_tpu_torch.envs.orca import ORCAParams
+from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
+    SparseRGL, SparseValueNet)
 from relationalgraphlearning_tpu_torch.ops import _build
 from relationalgraphlearning_tpu_torch.ops import ab_block as ab
 from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
-from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
+from relationalgraphlearning_tpu_torch.ops.sparse import (
+    knn_graph, knn_graph_auto)
+from relationalgraphlearning_tpu_torch.parallel import distributed
+from relationalgraphlearning_tpu_torch.parallel import graph_partition as gp
+from relationalgraphlearning_tpu_torch.parallel import partitioned_build as pb
+from relationalgraphlearning_tpu_torch.parallel.comm import run_local
+from relationalgraphlearning_tpu_torch.parallel.mesh import (
+    make_mesh, split_rows)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as ak
 from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
@@ -1862,6 +1891,395 @@ def baselines_phase(dev, report):
                                launches=launches)
 
 
+# ----------------------------------------------------------------- phase 11
+# bench_scaling.py's protocol (measure :20-90, measure_mega :93-146) with
+# fewer timed runs after the checked one (it takes 3): the ranks' threads
+# contend for the host, and D=8's mega row takes ~12 s a run on one card
+PARTITION = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, K=16, inner=8, B=128,
+                 C=448, reps=2)
+MEGA = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, steps=16, R=8, n_cap=2688,
+            B=128, C=512, K=16, K_orca=10, mig_cap=256, reps=1)
+# the JAX package's tests/test_partitioned_build.py case
+MEGA_SMALL = dict(n=600, steps=8, R=2, spec=dict(
+    D=4, n_cap=256, x0=-24.0, band_w=12.0, y0=-24.0, cell=3.0, grid_w=64,
+    B=64, C=256, K=8, K_orca=6, mig_cap=32))
+PARTITION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_parallel.py:99-100
+MEGA_ATOL = 1e-4            # tests/test_partitioned_build.py:99-102
+MEGA_VMEAN_FULL = 1e-3      # |vmean| at full size, against one device
+
+
+def partition_chain_rank(comm, model, method, halo, inner, states, a, b):
+    """One rank of ``inner`` chained partitioned forwards, each output
+    re-injected into the velocity columns (bench_scaling.py:55-58)."""
+    s = states
+    for _ in range(inner):
+        if method == "block_halo":
+            h = gp.block_rgl_rank(comm, model, halo, s, a, b)
+        else:
+            h = gp.sparse_rgl_rank(comm, model, method, s, a, b)
+        s = torch.cat([s[:, :2], h[:, :2] * 1e-6, s[:, 4:]], dim=-1)
+    return s
+
+
+def partition_inputs(D, method, dev, seed=0):
+    """bench_scaling.measure's set-up at n = 2048·D: uniform positions in a
+    100 m box (spatially sorted for the block path), K=16 dense kNN; the
+    block path's windows, packed masks and halo."""
+    cfg = PARTITION
+    n = cfg["n_per_rank"] * D
+    g = torch.Generator().manual_seed(seed)
+    pos = (torch.rand(n, 2, generator=g) * 100.0).to(dev)
+    if method == "block_halo":
+        pos = pos[bg.spatial_sort(pos)]
+    states = torch.cat([pos, torch.zeros_like(pos),
+                        torch.full_like(pos[:, :1], 0.3)], -1)
+    cols = knn_graph(pos, cfg["K"])
+    if method != "block_halo":
+        return states, cols, None, None, 0
+    cand, cov = bg.block_window(cols, cfg["B"], cfg["C"])
+    if float(cov) != 1.0:
+        raise RuntimeError(f"block_halo D={D}: window coverage {float(cov)}")
+    mbits = fb.pack_emask(bg.block_masks(cols, cand))
+    halo = max(8, -(-gp.halo_reach(cand, cfg["B"], n // D) // 8) * 8)
+    if halo >= n // D:
+        raise RuntimeError(f"block_halo D={D}: halo {halo} >= {n // D} rows")
+    return states, cols, cand, mbits, halo
+
+
+def partition_row(method, D, model, dev):
+    cfg = PARTITION
+    states, cols, cand, mbits, halo = partition_inputs(D, method, dev)
+    n = states.shape[0]
+    mesh = make_mesh(data=D, device=dev)
+    a, b = (cand, mbits) if method == "block_halo" else (cols, None)
+
+    def run():
+        return mesh.run(partition_chain_rank, replicated=(
+            model, method, halo, cfg["inner"]), row_sharded=(states, a, b))
+
+    captured.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    launches = captured.launch_counts()
+    want = {k: 0 for k in launches}
+    if method == "block_halo":
+        want["fused_block_attention_packed_shared"] = D * 2 * cfg["inner"]
+    if launches != want:
+        raise RuntimeError(f"{method} D={D}: launches {launches}, want "
+                           f"{want}")
+    t = time.perf_counter()
+    for _ in range(cfg["reps"]):
+        run()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / cfg["reps"]
+
+    # one forward against the one-device SparseRGL: gather on the card;
+    # block on the CPU, where #1's plain version runs, so the halo path's
+    # kernel is held against code that shares nothing with it
+    if method == "block_halo":
+        got = gp.partitioned_block_rgl(model, states, cand, mbits, mesh,
+                                       halo)
+        one = SparseRGL(GCNConfig(), backend="block").eval()
+        one.load_state_dict(model.state_dict())
+        want_h = one(states.cpu(), cols.cpu(), block_cand=cand.cpu(),
+                     block_emask=mbits.cpu()).to(dev)
+    else:
+        got = gp.partitioned_sparse_rgl(model, states, cols, mesh,
+                                        method=method)
+        want_h = model(states, cols)
+    torch.cuda.synchronize()
+    err = float((got - want_h).abs().max())
+    rel = float(((got - want_h).abs()
+                 / (PARTITION_TOL["atol"] + PARTITION_TOL["rtol"]
+                    * want_h.abs())).max())
+    torch.testing.assert_close(got, want_h, **PARTITION_TOL,
+                               msg=lambda m: f"{method} D={D}: {m}")
+    edges_per_s = n * cfg["K"] * cfg["inner"] * GCNConfig().num_layer / dt
+    return dict(method=method, D=D, n=n, halo=halo, seconds=dt,
+                medges_per_s=edges_per_s / 1e6, max_abs_err=err,
+                err_over_limit=rel, launches=launches)
+
+
+def kernel_2_on_halo(model, dev, flops, bw, report, D=4):
+    """#2 on its path: ``block_halo_attention`` with a separate 32-wide
+    value table at the D=4 block-halo row's shapes, unit-normal features.
+    Then #1 and #2 on one rank's kernel inputs (rank 1's, as the path
+    builds them): each held against its plain version, then timed."""
+    cfg = PARTITION
+    states, _, cand, mbits, halo = partition_inputs(D, "block_halo", dev)
+    n, d = states.shape[0], GCNConfig().X_dim
+    g = torch.Generator().manual_seed(7)
+    q, x = (unit_rows(torch.randn(n, d, generator=g)).to(dev)
+            for _ in range(2))
+    v = torch.randn(n, 32, generator=g).to(dev)
+    mesh = make_mesh(data=D, device=dev)
+    captured.reset_launch_counts()
+    got = mesh.run(lambda comm, *a: gp.block_halo_attention(comm, *a, halo),
+                   row_sharded=(q, x, v, cand, mbits))
+    torch.cuda.synchronize()
+    launches = captured.launch_counts()
+    if (launches["fused_block_attention_packed"] != D
+            or launches["fused_block_attention_packed_shared"] != 0):
+        raise RuntimeError(f"kernel #2 on the halo path: launches {launches}")
+    B = cfg["B"]
+    plain = fb.fused_block_attention_packed_plain(
+        q.reshape(-1, B, d), x, v, cand, mbits).reshape(n, -1)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    err = float((got - plain).abs().max())
+
+    # rank 1's kernel inputs: the exchanged tables, local ids, masked words
+    parts = [split_rows(t, D) for t in (q, x, v, cand, mbits)]
+    qb, x_ext, v_ext, ids, bits = run_local(
+        D, lambda comm: gp.halo_kernel_args(
+            comm, *(p[comm.rank] for p in parts), halo), device=dev)[1]
+    nb_loc = qb.shape[0]
+    mask = fb.unpack_emask(bits, B)
+    edges = int(mask.sum())
+    xg, vg = x_ext[ids], v_ext[ids]
+    timing = {}
+    for name, dv, fn, plain_fn, lib in (
+        ("fused_block_attention_packed_shared", d,
+         lambda: fb.fused_block_attention_packed_shared(qb, x_ext, ids,
+                                                        bits),
+         lambda: fb.fused_block_attention_packed_shared_plain(
+             qb, x_ext, ids, bits),
+         lambda: F.scaled_dot_product_attention(qb, xg, xg, attn_mask=mask,
+                                                scale=1.0)),
+        ("fused_block_attention_packed", 32,
+         lambda: fb.fused_block_attention_packed(qb, x_ext, v_ext, ids, bits),
+         lambda: fb.fused_block_attention_packed_plain(qb, x_ext, v_ext, ids,
+                                                       bits),
+         lambda: F.scaled_dot_product_attention(qb, xg, vg, attn_mask=mask,
+                                                scale=1.0)),
+    ):
+        out, want = fn(), plain_fn()
+        torch.testing.assert_close(
+            out, want, **TOL,
+            msg=lambda m: f"{name} at the halo's shapes (rank 1): {m}")
+        shared = name.endswith("shared")
+        tables = (x_ext.numel() + (0 if shared else v_ext.numel())) * 4
+        nbytes = (qb.numel() * 4 + tables + ids.numel() * 8
+                  + bits.numel() * 4 + qb.shape[0] * B * dv * 4)
+        bound_ms, bound_by = bound(nbytes, edges * (2 * d + 2 * dv + 2),
+                                   flops, bw)
+        try:
+            library_ms = device_ms(lib)
+        except RuntimeError as e:  # a yardstick only: note why it is absent
+            library_ms = None
+            report["notes"].append(f"{name} at the halo's shapes: library "
+                                   f"call failed: {e}")
+        timing[name] = dict(
+            max_abs_err=float((out - want).abs().max()), ms=device_ms(fn),
+            plain_ms=device_ms(plain_fn, reps=20),
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            shapes=dict(nb=nb_loc, B=B, C=ids.shape[1], d=d, dv=dv,
+                        table=x_ext.shape[0]), edges=edges)
+    return dict(D=D, halo=halo, launches=launches, max_abs_err=err,
+                timing=timing)
+
+
+def mega_graph_rank(comm, spec, sh):
+    """Per rank: a chunk's sort and build on these shards; the value net's
+    states, the windows and masks, and the active slots."""
+    sh = pb._local_sort(sh, spec)
+    _, _, cand, mbits, *_ = pb._build_graph(comm, sh, spec)
+    states = torch.cat([sh.pos, sh.vel, sh.rad[:, None]], dim=-1)
+    return states, cand, mbits, sh.active
+
+
+def mega_values_check(D, spec, net, sh, dev):
+    """The rollout's value net (#1 through the full-slab halo) per agent on
+    its final shards, against the same ranks on the CPU, where #1's plain
+    version runs: every agent's value, the halo's edge rows included."""
+    mesh = make_mesh(data=D, device=dev)
+    states, cand, mbits, active = mesh.run(mega_graph_rank,
+                                           replicated=(spec,),
+                                           row_sharded=(sh,))
+    got = mesh.run(pb._value_net_fullshard, replicated=(net,),
+                   row_sharded=(states, cand, mbits))
+    want = make_mesh(data=D, device="cpu").run(
+        pb._value_net_fullshard, replicated=(copy.deepcopy(net).cpu(),),
+        row_sharded=(states.cpu(), cand.cpu(), mbits.cpu()))
+    got, want = got[active].cpu(), want[active.cpu()]
+    torch.testing.assert_close(got, want, **PARTITION_TOL,
+                               msg=lambda m: f"mega D={D} values: {m}")
+    return float((got - want).abs().max())
+
+
+def mega_row(D, net, dev):
+    cfg = MEGA
+    n = cfg["n_per_rank"] * D
+    half = 100.0 * math.sqrt(n / 10240.0)   # the mega_crowd density
+    g = torch.Generator().manual_seed(0)
+    pos = ((torch.rand(n, 2, generator=g) * 2.0 - 1.0) * half).to(dev)
+    spec = pb.BandSpec(D=D, n_cap=cfg["n_cap"], x0=-half, band_w=2 * half / D,
+                       y0=-half, cell=2 * half / 64, grid_w=256, B=cfg["B"],
+                       C=cfg["C"], K=cfg["K"], K_orca=cfg["K_orca"],
+                       mig_cap=cfg["mig_cap"])
+    agents = (pos, torch.zeros_like(pos), -pos,
+              torch.full((n,), 0.3, device=dev), torch.ones(n, device=dev))
+    shards = pb.init_crowd_shards(*(a.cpu() for a in agents), spec,
+                                  device=dev)
+    run = pb.partitioned_mega_rollout(make_mesh(data=D, device=dev), spec,
+                                      net, ORCAParams(), cfg["steps"],
+                                      cfg["R"])
+    captured.reset_launch_counts()
+    sh, diag = run(shards)
+    torch.cuda.synchronize()
+    launches = captured.launch_counts()
+    want = {k: 0 for k in launches}
+    want["fused_block_attention_packed_shared"] = D * 2 * cfg["steps"]
+    if launches != want:
+        raise RuntimeError(f"mega D={D}: launches {launches}, want {want}")
+    diag = {k: float(v) for k, v in diag.items()}
+    aid = sh.aid[sh.active].sort().values.cpu()
+    if not torch.equal(aid, torch.arange(n, dtype=aid.dtype)):
+        raise RuntimeError(f"mega D={D}: {aid.numel()} of {n} agents kept")
+    if (diag["win_cov"] != 1.0 or diag["overflow"] != 0
+            or diag["lost"] != 0 or not math.isfinite(diag["vmean"])):
+        raise RuntimeError(f"mega D={D}: diagnostics {diag}")
+    t = time.perf_counter()
+    for _ in range(cfg["reps"]):
+        run(shards)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / cfg["reps"]
+
+    # the one-device loop: dense kNN, kNN ORCA, the gather value net
+    one = SparseValueNet(GCNConfig(), backend="gather").to(dev).eval()
+    one.load_state_dict(net.state_dict())
+    rpos, _, rvmean = pb.single_device_rollout(
+        one, *agents, ORCAParams(), cfg["steps"], cfg["R"], cfg["K"],
+        cfg["K_orca"])
+    dpos = (sh.pos[sh.active][sh.aid[sh.active].argsort()] - rpos).abs()
+    dpos = dpos.amax(-1)
+    dvmean = abs(diag["vmean"] - float(rvmean))
+    row = dict(D=D, n=n, seconds=dt, agent_steps_per_s=n * cfg["steps"] / dt,
+               **diag, max_dvalue=mega_values_check(D, spec, net, sh, dev),
+               max_dpos=float(dpos.max()),
+               agents_dpos_over_1e4=int((dpos > MEGA_ATOL).sum()),
+               dvmean=dvmean, launches=launches)
+    if dvmean > MEGA_VMEAN_FULL:
+        raise RuntimeError(f"mega D={D}: |vmean - one device| = {dvmean} "
+                           f"> {MEGA_VMEAN_FULL} ({row})")
+    return row
+
+
+def mega_small_check(dev):
+    """The JAX package's 600-agent D=4 case against the one-device loop,
+    on the card, at the reference's limits."""
+    c = MEGA_SMALL
+    g = torch.Generator().manual_seed(0)
+    n = c["n"]
+    pos = (torch.rand(n, 2, generator=g) * 47.0 - 23.5).to(dev)
+    agents = (pos, torch.zeros_like(pos), -pos,
+              torch.full((n,), 0.3, device=dev), torch.ones(n, device=dev))
+    spec = pb.BandSpec(**c["spec"])
+    net = seeded_net("block", dev)
+    sh, diag = pb.partitioned_mega_rollout(
+        make_mesh(data=spec.D, device=dev), spec, net, ORCAParams(),
+        c["steps"], c["R"])(pb.init_crowd_shards(
+            *(a.cpu() for a in agents), spec, device=dev))
+    one = seeded_net("gather", dev)
+    rpos, rvel, rvmean = pb.single_device_rollout(
+        one, *agents, ORCAParams(), c["steps"], c["R"], spec.K, spec.K_orca)
+    order = sh.aid[sh.active].argsort()
+    got_pos, got_vel = sh.pos[sh.active][order], sh.vel[sh.active][order]
+    diag = {k: float(v) for k, v in diag.items()}
+    out = dict(diag, max_dpos=float((got_pos - rpos).abs().max()),
+               max_dvel=float((got_vel - rvel).abs().max()),
+               dvmean=abs(diag["vmean"] - float(rvmean)),
+               kept=int(sh.active.sum()))
+    if (out["band_cov"] != 1.0 or out["win_cov"] != 1.0 or out["kept"] != n
+            or out["max_dpos"] > MEGA_ATOL or out["max_dvel"] > MEGA_ATOL
+            or out["dvmean"] > MEGA_ATOL):
+        raise RuntimeError(f"600-agent D=4 rollout off the one-device loop: "
+                           f"{out}")
+    return out
+
+
+def gloo_check(model, dev, D=2):
+    """The D=2 block forward as two ``torch.distributed`` processes (gloo,
+    through host memory) sharing the card, against the same ranks as
+    threads: the same kernels on the same rows, so bit for bit."""
+    states, _, cand, mbits, halo = partition_inputs(D, "block_halo", dev)
+    threads = gp.partitioned_block_rgl(model, states, cand, mbits,
+                                       make_mesh(data=D, device=dev), halo)
+    t = time.perf_counter()
+    procs = distributed.launch(
+        gp.block_rgl_rank, D, replicated=(model, halo),
+        row_sharded=(states, cand, mbits), device=str(dev), timeout=240.0)
+    seconds = time.perf_counter() - t
+    torch.testing.assert_close(procs, threads.cpu(), rtol=0, atol=0)
+    return dict(D=D, backend="gloo", seconds=seconds,
+                max_abs_err=float((procs - threads.cpu()).abs().max()))
+
+
+def partition_phase(dev, flops, bw, report):
+    """Slice 10: the node-partitioned paths on D ranks (threads on the
+    card). Returns the launches of #1 and #2 on the halo paths."""
+    t0 = time.perf_counter()
+    model = seeded_net("gather", dev).graph_model
+    rows = []
+    with torch.no_grad():
+        for method in ("ring", "allgather", "block_halo"):
+            base = None
+            for D in PARTITION["ranks"]:
+                row = partition_row(method, D, model, dev)
+                base = base or row["medges_per_s"]
+                row["scaling_efficiency_vs_D1"] = (
+                    row["medges_per_s"] / (base * D))
+                rows.append(row)
+                print(f"partitioned {method} D={D}: "
+                      f"{row['medges_per_s']:.2f} Medges/s (efficiency "
+                      f"{row['scaling_efficiency_vs_D1']:.3f}), max |err| "
+                      f"{row['max_abs_err']:.3g} ({row['err_over_limit']:.3g}"
+                      f" of the limit), halo {row['halo']}", flush=True)
+        k2 = kernel_2_on_halo(model, dev, flops, bw, report)
+        print(f"kernel #2 on the halo path (D=4): launches "
+              f"{k2['launches']['fused_block_attention_packed']}, max |err| "
+              f"{k2['max_abs_err']:.3g}; "
+              + "; ".join(f"{k}: {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}"
+                          f", library {v['library_ms']}, bound "
+                          f"{v['bound_ms']:.5f})"
+                          for k, v in k2["timing"].items()), flush=True)
+        net = seeded_net("block", dev)
+        mega = []
+        base = None
+        for D in MEGA["ranks"]:
+            row = mega_row(D, net, dev)
+            base = base or row["agent_steps_per_s"]
+            row["scaling_efficiency_vs_D1"] = (
+                row["agent_steps_per_s"] / (base * D))
+            mega.append(row)
+            print(f"partitioned mega D={D}: {row['agent_steps_per_s']:.0f} "
+                  f"agent-steps/s (efficiency "
+                  f"{row['scaling_efficiency_vs_D1']:.3f}), band_cov "
+                  f"{row['band_cov']}, win_cov {row['win_cov']}, overflow "
+                  f"{row['overflow']:.0f}, lost {row['lost']:.0f}, max "
+                  f"|dpos| {row['max_dpos']:.3g} "
+                  f"({row['agents_dpos_over_1e4']} agents > 1e-4), |dvmean| {row['dvmean']:.3g}, max "
+                  f"|dvalue| card vs CPU {row['max_dvalue']:.3g}",
+                  flush=True)
+        small = mega_small_check(dev)
+        print(f"600 agents, D=4, against one device: {small}", flush=True)
+        gloo = gloo_check(model, dev)
+        print(f"D=2 as two gloo processes == threads, bit for bit "
+              f"({gloo['seconds']:.1f} s)", flush=True)
+    seconds = time.perf_counter() - t0
+    report["partition"] = dict(rows=rows, kernel_2=k2, mega=mega,
+                               mega_small=small, gloo=gloo, seconds=seconds,
+                               note="D ranks as threads on one card: "
+                                    "plumbing, not scaling")
+    print(f"phase 11: {seconds:.1f} s", flush=True)
+    halo1 = {f"block_halo@D={r['D']}":
+             r["launches"]["fused_block_attention_packed_shared"]
+             for r in rows if r["method"] == "block_halo"}
+    halo1.update({f"mega@D={r['D']}":
+                  r["launches"]["fused_block_attention_packed_shared"]
+                  for r in mega})
+    return dict(halo1=halo1, k2=k2)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1909,12 +2327,14 @@ def main() -> int:
     mprl_phase(dev, report)
     train_phase(dev, report)
     baselines_phase(dev, report)
-    # each kernel's launches on the path that runs it (0: no path does)
+    partition = partition_phase(dev, flops, bw, report)
+    # each kernel's launches on the path that runs it (0: no path does);
+    # #2's only path is the halo attention with a value table
     path_launches = {
         "fused_block_attention_packed_shared":
             slice_launches["fused_block_attention_packed_shared"],
         "fused_block_attention_packed":
-            slice_launches["fused_block_attention_packed"],
+            partition["k2"]["launches"]["fused_block_attention_packed"],
         "fused_gather_attention": pallas_launches["fused_gather_attention"],
         "chunk_block_attention[groups=2]":
             chain_launches["chunk@d64"]["chunk_block_attention"],
@@ -1927,6 +2347,11 @@ def main() -> int:
            for name in AB_VARIANTS}}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
+        if row["name"] in partition["k2"]["timing"]:
+            row["halo"] = dict(partition["k2"]["timing"][row["name"]])
+            row["halo"]["launches"] = (
+                partition["halo1"] if row["name"].endswith("shared") else
+                {"block_halo_attention@D=4": row["launches"]})
     if args.profile:
         profile_phase(dev, report)
         backend_phase(dev, report)

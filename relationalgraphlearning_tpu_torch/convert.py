@@ -30,6 +30,24 @@ def _mlp(prefix: str, node: Mapping, out: dict) -> None:
         i += 1
 
 
+def _sparse_rgl(prefix: str, g: Mapping, out: dict) -> None:
+    _mlp(f"{prefix}w_h", g["w_h"], out)
+    _dense(f"{prefix}w_a", g["w_a"], out)
+    i = 1
+    while f"gcn_w{i}" in g:
+        _dense(f"{prefix}gcn_layers.{i - 1}", g[f"gcn_w{i}"], out)
+        i += 1
+
+
+def sparse_rgl_from_flax(tree: Mapping) -> dict:
+    """A bare ``SparseRGL``'s params (``{"params": {...}}`` or the inner
+    dict: ``w_h/dense_i``, ``w_a``, ``gcn_w{i}``) → the ``state_dict`` of
+    the port's ``SparseRGL``, as ``partitioned_block_rgl`` takes it."""
+    out: dict = {}
+    _sparse_rgl("", tree.get("params", tree), out)
+    return out
+
+
 def sparse_value_net_from_flax(tree: Mapping) -> dict:
     """``SparseValueNet`` params (``{"params": {...}}`` or the inner dict)
     → the ``state_dict`` of the port's ``SparseValueNet``.
@@ -38,14 +56,8 @@ def sparse_value_net_from_flax(tree: Mapping) -> dict:
     ``value_network/dense_i``.
     """
     p = tree.get("params", tree)
-    g = p["graph_model"]
     out: dict = {}
-    _mlp("graph_model.w_h", g["w_h"], out)
-    _dense("graph_model.w_a", g["w_a"], out)
-    i = 1
-    while f"gcn_w{i}" in g:
-        _dense(f"graph_model.gcn_layers.{i - 1}", g[f"gcn_w{i}"], out)
-        i += 1
+    _sparse_rgl("graph_model.", p["graph_model"], out)
     _mlp("value_network", p["value_network"], out)
     return out
 

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
@@ -27,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_SMEM_BYTES = 232_448
 
 _loaded: dict = {}
+_load_lock = threading.Lock()   # ranks run as threads load at once
 
 
 def nvcc() -> str:
@@ -79,12 +81,13 @@ def build_all(sources) -> dict:
 
 def load(source: Path) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if need be."""
-    lib = _loaded.get(source)
-    if lib is None:
-        build_all([source])
-        lib = ctypes.CDLL(str(library_path(source)))
-        _loaded[source] = lib
-    return lib
+    with _load_lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            build_all([source])
+            lib = ctypes.CDLL(str(library_path(source)))
+            _loaded[source] = lib
+        return lib
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

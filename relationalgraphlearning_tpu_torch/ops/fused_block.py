@@ -23,6 +23,7 @@ its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 from torch import Tensor
@@ -37,6 +38,9 @@ ROWS_PER_CTA = 16           # kRowsPerCta in csrc/block_attention.cuh
 SOURCE = _build.CSRC / "fused_block_attention.cu"
 
 _lib = None
+# ranks run as threads may launch at once (parallel/comm.py): a count's
+# read-add-write holds this lock
+_count_lock = threading.Lock()
 
 
 # ------------------------------------------------------------------ the build
@@ -184,7 +188,8 @@ def fused_block_attention_packed_shared(
         return fused_block_attention_packed_shared_plain(
             qb, x, cand, mbits, epilogue, stable)
     out = _launch(qb, x, x, cand, mbits, True, epilogue, stable)
-    fused_block_attention_packed_shared.launches += 1
+    with _count_lock:
+        fused_block_attention_packed_shared.launches += 1
     return out
 
 
@@ -196,7 +201,8 @@ def fused_block_attention_packed(
         return fused_block_attention_packed_plain(
             qb, x, v, cand, mbits, epilogue, stable)
     out = _launch(qb, x, v, cand, mbits, False, epilogue, stable)
-    fused_block_attention_packed.launches += 1
+    with _count_lock:
+        fused_block_attention_packed.launches += 1
     return out
 
 

@@ -10,7 +10,11 @@ bit for bit, and a ``debug`` train on the card); and the one-step
 baselines (CADRL, SARL, SARL with occupancy maps, LSTM-RL, the model-free
 RGL): their action values on the card against the CPU, their captured
 rollouts (with the env-queried lookahead too) against eager ones, and
-SARL's value-only training step and collection captured against eager.
+SARL's value-only training step and collection captured against eager; and
+the partitioned paths on 4 ranks run as threads on the card (kernel #1
+through ``partitioned_block_rgl``, #2 through ``block_halo_attention`` with
+a value table, the 600-agent partitioned rollout) against the same ranks on
+the CPU.
 
 These tests need an NVIDIA GPU with ``nvcc`` (sm_90a) and skip elsewhere.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -33,9 +37,14 @@ import torch
 from relationalgraphlearning_tpu_torch import checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as trc
 from relationalgraphlearning_tpu_torch import types as TT
+from relationalgraphlearning_tpu_torch.configs.base import GCNConfig as TGCN
 from relationalgraphlearning_tpu_torch.configs.base import load_config_module
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
 from relationalgraphlearning_tpu_torch.envs import mega_crowd as tmc
+from relationalgraphlearning_tpu_torch.envs.orca import (
+    ORCAParams as TORCAParams)
+from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
+    SparseValueNet as TSparseValueNet)
 from relationalgraphlearning_tpu_torch.envs.mega_crowd import (
     mega_crowd_rollout)
 from relationalgraphlearning_tpu_torch.ops import _build as tbuild
@@ -45,6 +54,9 @@ from relationalgraphlearning_tpu_torch.ops import fused_block as tfb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as tfc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as tfg
 from relationalgraphlearning_tpu_torch.ops import sparse as tsp
+from relationalgraphlearning_tpu_torch.parallel import graph_partition as tgp
+from relationalgraphlearning_tpu_torch.parallel import mesh as tmesh
+from relationalgraphlearning_tpu_torch.parallel import partitioned_build as tpb
 from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
     ModelPredictiveRLPolicy)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as tak
@@ -1063,3 +1075,99 @@ def test_cuda_sarl_captured_collection_replays_eager(dev):
         for name, x, y in zip(a._fields, a, b):
             torch.testing.assert_close(y, x, rtol=0, atol=0,
                                        msg=f"{part}.{name}")
+
+
+# -------------------------------- the partitioned paths on D ranks (slice 10)
+def _halo_problem(n=4096, K=8, B=64, C=224, seed=3):
+    """The JAX package's block set-up (tests/test_parallel.py): 4096 agents
+    sorted in a 30 m box, the graph's halo reach under the 1024 rows of
+    each of 4 ranks. The net sees the positions in a unit box, so scores
+    stay small enough for 1e-5 between two float32 summation orders."""
+    g = torch.Generator().manual_seed(seed)
+    pos = torch.rand(n, 2, generator=g) * 30.0
+    pos = pos[tbg.spatial_sort(pos)]
+    cols = tsp.knn_graph(pos, K)
+    cand, cov = tbg.block_window(cols, B, C)
+    assert float(cov) == 1.0
+    mbits = tfb.pack_emask(tbg.block_masks(cols, cand))
+    states = torch.cat([pos / 30.0, torch.zeros(n, 2),
+                        torch.full((n, 1), 0.3)], -1)
+    halo = -(-tgp.halo_reach(cand, B, n // 4) // 8) * 8
+    return states, cand, mbits, halo
+
+
+def test_cuda_partitioned_block_rgl_launches_kernel_1(dev):
+    """4 ranks as threads on the card: kernel #1 twice a rank (two GCN
+    layers), the result equal to the same ranks on the CPU (plain)."""
+    states, cand, mbits, halo = _halo_problem()
+    g = torch.Generator().manual_seed(1)
+    net = TSparseValueNet(TGCN(), backend="block", generator=g).eval()
+    model = net.graph_model
+    with torch.no_grad():
+        want = tgp.partitioned_block_rgl(
+            model, states, cand, mbits, tmesh.make_mesh(data=4, device="cpu"),
+            halo)
+        tfb.reset_launch_counts()
+        got = tgp.partitioned_block_rgl(
+            model.to(dev), states.to(dev), cand.to(dev), mbits.to(dev),
+            tmesh.make_mesh(data=4, device=dev), halo)
+        torch.cuda.synchronize()
+    counts = tfb.launch_counts()
+    assert counts["fused_block_attention_packed_shared"] == 4 * 2
+    assert counts["fused_block_attention_packed"] == 0
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_cuda_block_halo_attention_with_values_launches_kernel_2(dev):
+    states, cand, mbits, halo = _halo_problem()
+    g = torch.Generator().manual_seed(4)
+    n = states.shape[0]
+    q, x = torch.randn(n, 32, generator=g), torch.randn(n, 32, generator=g)
+    q, x = q / q.norm(dim=1, keepdim=True), x / x.norm(dim=1, keepdim=True)
+    v = torch.randn(n, 32, generator=g)
+
+    def run(device):
+        return tmesh.make_mesh(data=4, device=device).run(
+            lambda comm, *a: tgp.block_halo_attention(comm, *a, halo),
+            row_sharded=tuple(t.to(device) for t in (q, x, v, cand, mbits)))
+
+    want = run("cpu")
+    tfb.reset_launch_counts()
+    got = run(dev)
+    torch.cuda.synchronize()
+    counts = tfb.launch_counts()
+    assert counts["fused_block_attention_packed"] == 4
+    assert counts["fused_block_attention_packed_shared"] == 0
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_cuda_partitioned_rollout_matches_the_cpu(dev):
+    """The JAX package's 600-agent case (tests/test_partitioned_build.py):
+    4 ranks on the card against the same on the CPU, per agent."""
+    g = torch.Generator().manual_seed(0)
+    n = 600
+    pos = torch.rand(n, 2, generator=g) * 47.0 - 23.5
+    kw = dict(D=4, n_cap=256, x0=-24.0, band_w=12.0, y0=-24.0, cell=3.0,
+              grid_w=64, B=64, C=256, K=8, K_orca=6, mig_cap=32)
+    spec = tpb.BandSpec(**kw)
+    gnet = torch.Generator().manual_seed(1)
+    net = TSparseValueNet(TGCN(), backend="block", generator=gnet).eval()
+    args = (pos, torch.zeros(n, 2), -pos, torch.full((n,), 0.3),
+            torch.ones(n))
+    out = {}
+    for device in ("cpu", dev):
+        tfb.reset_launch_counts()
+        out[device] = tpb.partitioned_mega_rollout(
+            tmesh.make_mesh(data=4, device=device), spec, net.to(device),
+            TORCAParams(), 8, 2)(tpb.init_crowd_shards(*args, spec,
+                                                       device=device))
+    assert tfb.launch_counts()["fused_block_attention_packed_shared"] == \
+        4 * 2 * 8
+    (csh, cdiag), (gsh, gdiag) = out["cpu"], out[dev]
+    for k in ("band_cov", "win_cov", "overflow", "lost"):
+        assert float(gdiag[k]) == float(cdiag[k]), k
+    assert float(gdiag["win_cov"]) == 1.0 and int(gdiag["lost"]) == 0
+    assert abs(float(gdiag["vmean"]) - float(cdiag["vmean"])) < 1e-4
+    torch.testing.assert_close(gsh.aid.cpu(), csh.aid, rtol=0, atol=0)
+    torch.testing.assert_close(gsh.pos.cpu(), csh.pos, rtol=0, atol=1e-4)
+    torch.testing.assert_close(gsh.vel.cpu(), csh.vel, rtol=0, atol=1e-4)

@@ -37,7 +37,9 @@ for leaf in ("tools.ab_kernel", "types", "geometry", "checkpoints",
              "training.replay_buffer", "training.trainer",
              "training.checkpoint", "training.metrics",
              "training.train_loop", "cli.train", "models.baseline_nets",
-             "policies.one_step"):
+             "policies.one_step", "parallel.comm", "parallel.mesh",
+             "parallel.distributed", "parallel.graph_partition",
+             "parallel.partitioned_build"):
     assert "relationalgraphlearning_tpu_torch." + leaf in names, leaf
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -17,13 +17,13 @@ import torch
 
 from relationalgraphlearning_tpu.configs.base import GCNConfig as JGCN
 from relationalgraphlearning_tpu.models.sparse_rgl import (
-    SparseValueNet as JNet)
+    SparseRGL as JRGL, SparseValueNet as JNet)
 from relationalgraphlearning_tpu.ops import block_graph as jbg
 from relationalgraphlearning_tpu.ops import pallas_block as jpb
 from relationalgraphlearning_tpu.ops import sparse as jsp
 from relationalgraphlearning_tpu_torch.configs.base import GCNConfig as TGCN
 from relationalgraphlearning_tpu_torch.convert import (
-    sparse_value_net_from_flax)
+    sparse_rgl_from_flax, sparse_value_net_from_flax)
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
     SparseRGL as TRGL, SparseValueNet as TNet)
 from relationalgraphlearning_tpu_torch.ops import block_graph as tbg
@@ -62,6 +62,26 @@ def test_convert_covers_every_parameter():
     assert sum(v.numel() for v in sd.values()) == n_flax
     k = np.asarray(params["params"]["graph_model"]["w_a"]["kernel"])
     np.testing.assert_array_equal(sd["graph_model.w_a.weight"].numpy(), k.T)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_sparse_rgl_from_flax_matches_a_flax_init(skip):
+    """A bare SparseRGL tree (as the partitioned forwards take it): every
+    parameter carried over, and the forward equal to flax's."""
+    states, cols = _crowd(9)
+    jrgl = JRGL(JGCN(skip_connection=skip))
+    params = jrgl.init(jax.random.PRNGKey(10), jnp.asarray(states),
+                       jnp.asarray(cols))
+    sd = sparse_rgl_from_flax(jax.tree.map(np.asarray, params))
+    trgl = TRGL(TGCN(skip_connection=skip))
+    assert set(sd) == set(trgl.state_dict())
+    assert sum(v.numel() for v in sd.values()) == sum(
+        np.asarray(a).size for a in jax.tree.leaves(params))
+    trgl.load_state_dict(sd)
+    want = jrgl.apply(params, jnp.asarray(states), jnp.asarray(cols))
+    with torch.no_grad():
+        got = trgl(torch.from_numpy(states), torch.from_numpy(cols).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("skip", [False, True])

@@ -130,8 +130,30 @@ Phases, each of which exits non-zero on failure:
     (max |pos| difference reported); the reference's 600-agent D=4 case
     against the one-device loop at atol 1e-4; and the D=2 block forward as
     two ``torch.distributed`` processes (gloo) sharing the card, equal to
-    the threads' result bit for bit. One card: these rates are plumbing.
-12. Print the ``kernels`` line, the card line and the last line.
+    the threads' result bit for bit. Each forward row and mega run also
+    runs graphed: every rank captured into one CUDA graph
+    (``Mesh.capture``; the mega run with its per-chunk rebuilds), whose
+    ``launches`` must be the eager run's (#1 D x 2 x 8, D x 2 x 16) and
+    whose replay must equal the eager run bit for bit; the rows time both
+    modes in turns (E G G E) beside the capture seconds. One card: these
+    rates are plumbing.
+12. The data- and tensor-parallel path (``parallel/sharding.py``) at the
+    full width of ``mp_separate``, the first stage of the reference's
+    multi-device dry run at its meshes for 2, 4 and 8 devices, (data,
+    model) = (2, 1), (2, 2), (4, 2) rank threads: 2 collection steps of the
+    16 train envs split over data, equal to one device's bit for bit; the
+    transitions pushed, a minibatch of 100 sampled and one dp/tp SGD step
+    (the imitation optimizer) within value-loss rel 1e-4 and parameters
+    1e-4 of one device (``tests/test_parallel.py:107-147``); the step
+    captured as one graph of all ranks equal to the eager ranks bit for
+    bit for SGD and Adam, every rank of an axis holding the same bits;
+    Adam steps/s graphed and eager in turns. Then ``cli.train --debug
+    --mesh_data 2 --mesh_model 2`` to its end, ``cli.train --multihost``
+    as two gloo processes against ``--mesh_data 2`` as threads at toy
+    counts (the checkpoints bit for bit), ``NativeORCA`` against
+    ``envs/orca.py`` on 64 test cases' humans on the card, and one
+    ``mprl_td`` test case rendered to a GIF. None of #1-#7 may launch.
+13. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -142,7 +164,9 @@ import argparse
 import copy
 import json
 import math
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -173,6 +197,7 @@ from relationalgraphlearning_tpu_torch.ops.sparse import (
 from relationalgraphlearning_tpu_torch.parallel import distributed
 from relationalgraphlearning_tpu_torch.parallel import graph_partition as gp
 from relationalgraphlearning_tpu_torch.parallel import partitioned_build as pb
+from relationalgraphlearning_tpu_torch.parallel import sharding
 from relationalgraphlearning_tpu_torch.parallel.comm import run_local
 from relationalgraphlearning_tpu_torch.parallel.mesh import (
     make_mesh, split_rows)
@@ -1893,12 +1918,13 @@ def baselines_phase(dev, report):
 
 # ----------------------------------------------------------------- phase 11
 # bench_scaling.py's protocol (measure :20-90, measure_mega :93-146) with
-# fewer timed runs after the checked one (it takes 3): the ranks' threads
-# contend for the host, and D=8's mega row takes ~12 s a run on one card
+# fewer timed runs (it takes 3), in turns E G G E: the eager ranks' threads
+# contend for the host, and D=8's eager mega run takes ~12 s on one card; a
+# mega turn is one run
 PARTITION = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, K=16, inner=8, B=128,
-                 C=448, reps=2)
+                 C=448, reps=2, graph_reps=10)
 MEGA = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, steps=16, R=8, n_cap=2688,
-            B=128, C=512, K=16, K_orca=10, mig_cap=256, reps=1)
+            B=128, C=512, K=16, K_orca=10, mig_cap=256)
 # the JAX package's tests/test_partitioned_build.py case
 MEGA_SMALL = dict(n=600, steps=8, R=2, spec=dict(
     D=4, n_cap=256, x0=-24.0, band_w=12.0, y0=-24.0, cell=3.0, grid_w=64,
@@ -1947,18 +1973,22 @@ def partition_inputs(D, method, dev, seed=0):
 
 
 def partition_row(method, D, model, dev):
+    """One row of bench_scaling.measure: the eager ranks (their launches
+    counted) and the ranks captured as one CUDA graph (``Mesh.capture``),
+    the graph equal to the eager run bit for bit, timed in turns E G G E."""
     cfg = PARTITION
     states, cols, cand, mbits, halo = partition_inputs(D, method, dev)
     n = states.shape[0]
     mesh = make_mesh(data=D, device=dev)
     a, b = (cand, mbits) if method == "block_halo" else (cols, None)
+    rep = (model, method, halo, cfg["inner"])
 
     def run():
-        return mesh.run(partition_chain_rank, replicated=(
-            model, method, halo, cfg["inner"]), row_sharded=(states, a, b))
+        return mesh.run(partition_chain_rank, replicated=rep,
+                        row_sharded=(states, a, b))
 
     captured.reset_launch_counts()
-    run()
+    eager_out = run()
     torch.cuda.synchronize()
     launches = captured.launch_counts()
     want = {k: 0 for k in launches}
@@ -1968,10 +1998,24 @@ def partition_row(method, D, model, dev):
         raise RuntimeError(f"{method} D={D}: launches {launches}, want "
                            f"{want}")
     t = time.perf_counter()
-    for _ in range(cfg["reps"]):
-        run()
+    graph = mesh.capture(partition_chain_rank, replicated=rep,
+                         row_sharded=(states, a, b))
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t) / cfg["reps"]
+    capture_s = time.perf_counter() - t
+    if graph.launches != want:
+        raise RuntimeError(f"{method} D={D}: the graph holds "
+                           f"{graph.launches}, want {want}")
+    torch.testing.assert_close(graph(states, a, b), eager_out, **REPLAY_TOL,
+                               msg=lambda m: f"{method} D={D} graphed vs "
+                               f"eager: {m}")
+    walls = {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        fn = run if mode == "eager" else (lambda: graph(states, a, b))
+        reps = cfg["reps"] if mode == "eager" else cfg["graph_reps"]
+        walls[mode].append(_timed(lambda: [fn() for _ in range(reps)])
+                           / reps)
+    dt = statistics.median(walls["eager"])
+    dt_graphed = statistics.median(walls["graphed"])
 
     # one forward against the one-device SparseRGL: gather on the card;
     # block on the CPU, where #1's plain version runs, so the halo path's
@@ -1994,10 +2038,13 @@ def partition_row(method, D, model, dev):
                     * want_h.abs())).max())
     torch.testing.assert_close(got, want_h, **PARTITION_TOL,
                                msg=lambda m: f"{method} D={D}: {m}")
-    edges_per_s = n * cfg["K"] * cfg["inner"] * GCNConfig().num_layer / dt
+    edges = n * cfg["K"] * cfg["inner"] * GCNConfig().num_layer
     return dict(method=method, D=D, n=n, halo=halo, seconds=dt,
-                medges_per_s=edges_per_s / 1e6, max_abs_err=err,
-                err_over_limit=rel, launches=launches)
+                medges_per_s=edges / dt / 1e6, seconds_graphed=dt_graphed,
+                medges_per_s_graphed=edges / dt_graphed / 1e6,
+                capture_s=capture_s, walls=walls, max_abs_err=err,
+                err_over_limit=rel, launches=launches,
+                graph_launches=graph.launches)
 
 
 def kernel_2_on_halo(model, dev, flops, bw, report, D=4):
@@ -2120,12 +2167,15 @@ def mega_row(D, net, dev):
               torch.full((n,), 0.3, device=dev), torch.ones(n, device=dev))
     shards = pb.init_crowd_shards(*(a.cpu() for a in agents), spec,
                                   device=dev)
-    run = pb.partitioned_mega_rollout(make_mesh(data=D, device=dev), spec,
-                                      net, ORCAParams(), cfg["steps"],
-                                      cfg["R"])
+    mesh = make_mesh(data=D, device=dev)
+    run = pb.partitioned_mega_rollout(mesh, spec, net, ORCAParams(),
+                                      cfg["steps"], cfg["R"])
+    walls = {"eager": [], "graphed": []}
     captured.reset_launch_counts()
+    t = time.perf_counter()
     sh, diag = run(shards)
     torch.cuda.synchronize()
+    walls["eager"].append(time.perf_counter() - t)
     launches = captured.launch_counts()
     want = {k: 0 for k in launches}
     want["fused_block_attention_packed_shared"] = D * 2 * cfg["steps"]
@@ -2138,11 +2188,29 @@ def mega_row(D, net, dev):
     if (diag["win_cov"] != 1.0 or diag["overflow"] != 0
             or diag["lost"] != 0 or not math.isfinite(diag["vmean"])):
         raise RuntimeError(f"mega D={D}: diagnostics {diag}")
+
+    # the whole rollout of every rank, rebuilds included, as one graph
+    graphed = pb.partitioned_mega_rollout(mesh, spec, net, ORCAParams(),
+                                          cfg["steps"], cfg["R"],
+                                          graphed=True)
     t = time.perf_counter()
-    for _ in range(cfg["reps"]):
-        run(shards)
+    g_sh, g_diag = graphed(shards)              # captures, then replays
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t) / cfg["reps"]
+    capture_s = time.perf_counter() - t
+    if graphed.graph.launches != want:
+        raise RuntimeError(f"mega D={D}: the graph holds "
+                           f"{graphed.graph.launches}, want {want}")
+    for name, got, ref in zip(sh._fields, g_sh, sh):
+        torch.testing.assert_close(got, ref, **REPLAY_TOL, msg=lambda m: (
+            f"mega D={D} graphed {name} vs eager: {m}"))
+    if {k: float(v) for k, v in g_diag.items()} != diag:
+        raise RuntimeError(f"mega D={D}: graphed diagnostics {g_diag} vs "
+                           f"eager {diag}")
+    for mode in ("graphed", "graphed", "eager"):
+        walls[mode].append(_timed(lambda: (graphed if mode == "graphed"
+                                           else run)(shards)))
+    dt = statistics.median(walls["eager"])
+    dt_graphed = statistics.median(walls["graphed"])
 
     # the one-device loop: dense kNN, kNN ORCA, the gather value net
     one = SparseValueNet(GCNConfig(), backend="gather").to(dev).eval()
@@ -2154,7 +2222,11 @@ def mega_row(D, net, dev):
     dpos = dpos.amax(-1)
     dvmean = abs(diag["vmean"] - float(rvmean))
     row = dict(D=D, n=n, seconds=dt, agent_steps_per_s=n * cfg["steps"] / dt,
-               **diag, max_dvalue=mega_values_check(D, spec, net, sh, dev),
+               seconds_graphed=dt_graphed,
+               agent_steps_per_s_graphed=n * cfg["steps"] / dt_graphed,
+               capture_s=capture_s, walls=walls,
+               graph_launches=graphed.graph.launches, **diag,
+               max_dvalue=mega_values_check(D, spec, net, sh, dev),
                max_dpos=float(dpos.max()),
                agents_dpos_over_1e4=int((dpos > MEGA_ATOL).sum()),
                dvmean=dvmean, launches=launches)
@@ -2225,13 +2297,20 @@ def partition_phase(dev, flops, bw, report):
             base = None
             for D in PARTITION["ranks"]:
                 row = partition_row(method, D, model, dev)
-                base = base or row["medges_per_s"]
+                base = base or (row["medges_per_s"],
+                                row["medges_per_s_graphed"])
                 row["scaling_efficiency_vs_D1"] = (
-                    row["medges_per_s"] / (base * D))
+                    row["medges_per_s"] / (base[0] * D))
+                row["scaling_efficiency_vs_D1_graphed"] = (
+                    row["medges_per_s_graphed"] / (base[1] * D))
                 rows.append(row)
                 print(f"partitioned {method} D={D}: "
-                      f"{row['medges_per_s']:.2f} Medges/s (efficiency "
-                      f"{row['scaling_efficiency_vs_D1']:.3f}), max |err| "
+                      f"{row['medges_per_s_graphed']:.2f} Medges/s graphed "
+                      f"(efficiency "
+                      f"{row['scaling_efficiency_vs_D1_graphed']:.3f}), "
+                      f"{row['medges_per_s']:.2f} eager (efficiency "
+                      f"{row['scaling_efficiency_vs_D1']:.3f}), capture "
+                      f"{row['capture_s']:.2f} s, graph == eager, max |err| "
                       f"{row['max_abs_err']:.3g} ({row['err_over_limit']:.3g}"
                       f" of the limit), halo {row['halo']}", flush=True)
         k2 = kernel_2_on_halo(model, dev, flops, bw, report)
@@ -2247,13 +2326,20 @@ def partition_phase(dev, flops, bw, report):
         base = None
         for D in MEGA["ranks"]:
             row = mega_row(D, net, dev)
-            base = base or row["agent_steps_per_s"]
+            base = base or (row["agent_steps_per_s"],
+                            row["agent_steps_per_s_graphed"])
             row["scaling_efficiency_vs_D1"] = (
-                row["agent_steps_per_s"] / (base * D))
+                row["agent_steps_per_s"] / (base[0] * D))
+            row["scaling_efficiency_vs_D1_graphed"] = (
+                row["agent_steps_per_s_graphed"] / (base[1] * D))
             mega.append(row)
-            print(f"partitioned mega D={D}: {row['agent_steps_per_s']:.0f} "
-                  f"agent-steps/s (efficiency "
-                  f"{row['scaling_efficiency_vs_D1']:.3f}), band_cov "
+            print(f"partitioned mega D={D}: "
+                  f"{row['agent_steps_per_s_graphed']:.0f} agent-steps/s "
+                  f"graphed (efficiency "
+                  f"{row['scaling_efficiency_vs_D1_graphed']:.3f}), "
+                  f"{row['agent_steps_per_s']:.0f} eager (efficiency "
+                  f"{row['scaling_efficiency_vs_D1']:.3f}), capture "
+                  f"{row['capture_s']:.2f} s, graph == eager, band_cov "
                   f"{row['band_cov']}, win_cov {row['win_cov']}, overflow "
                   f"{row['overflow']:.0f}, lost {row['lost']:.0f}, max "
                   f"|dpos| {row['max_dpos']:.3g} "
@@ -2278,6 +2364,311 @@ def partition_phase(dev, flops, bw, report):
                   r["launches"]["fused_block_attention_packed_shared"]
                   for r in mega})
     return dict(halo1=halo1, k2=k2)
+
+
+# ----------------------------------------------------------------- phase 12
+# The first stage of the reference's multi-device dry run (__graft_entry__
+# .py:44-98: collect, push, sample, one dp/tp step) at the meshes it picks
+# for 2, 4 and 8 devices, at the full width of mp_separate (its 16 train
+# envs and minibatch of 100), 2 collection steps.
+DP = dict(meshes=((2, 1), (2, 2), (4, 2)), B=16, K=2, eps=0.1,
+          sgd_timed=(200, 5))
+DP_LOSS_REL, DP_PARAM_ATOL = 1e-4, 1e-4     # tests/test_parallel.py:142-147
+# cli.train --multihost against --mesh_data 2 at toy counts (a config file
+# in the repository's form; the port's loader reads it as its own)
+DP_TOY = """
+from relationalgraphlearning_tpu.configs.base import (
+    Config, MPRLConfig, PolicyConfig, TrainConfig)
+
+
+def get_config() -> Config:
+    return Config(
+        policy=PolicyConfig(mprl=MPRLConfig(planning_depth=2,
+                                            planning_width=2)),
+        train=TrainConfig(il_episodes=4, il_epochs=1, train_batches=5,
+                          checkpoint_interval=4, capacity=2000))
+"""
+DP_TOY_FLAGS = ["--rl_train_episodes", "6", "--evaluation_interval", "3",
+                "--target_update_interval", "3", "--val_size", "4",
+                "--train_envs", "4", "--collect_steps", "16"]
+
+
+def dp_fresh(config, state, dev, optimizer=None, lr=None):
+    """The artifacts of ``config`` with the trainer's ``state``, and a
+    fresh optimizer of ``optimizer`` at ``lr`` when given."""
+    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+    art.trainer.load_state(state)
+    if optimizer is not None:
+        art.trainer.set_learning_rate(lr, optimizer)
+    return art
+
+
+def dp_ranks_agree(par, what):
+    """Every rank of an axis holds the same bits (parameters and optimizer
+    state), and the shards of data rank 0 are the trainer's whole state."""
+    names = sharding._sharded_names(par.base.net, par.model)
+    ranks = par.ranks
+    for i, n in enumerate(ranks[0].names):
+        for r, rt in enumerate(ranks):
+            ref = ranks[r % par.model] if n in names else ranks[0]
+            ok = torch.equal(rt.params[i], ref.params[i]) and all(
+                torch.equal(t, ref.optimizer.state[ref.params[i]][k])
+                for k, t in rt.optimizer.state[rt.params[i]].items())
+            if not ok:
+                raise RuntimeError(f"{what}: rank {r} differs on {n}")
+        whole = (torch.cat([ranks[m].params[i] for m in range(par.model)])
+                 if n in names else ranks[0].params[i])
+        if not torch.equal(whole, par.base.params[i]):
+            raise RuntimeError(f"{what}: the gathered {n} differs")
+
+
+def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
+                dev, gen):
+    """One mesh: the split collection against one device's, one SGD step
+    (the imitation optimizer) against one device's, graphed == eager for
+    SGD and Adam, the ranks identical; Adam steps/s in turns E G G E."""
+    tc, sim = config.train, config.env.sim
+    mesh = make_mesh(D, M, device=dev)
+    label = f"dp/tp ({D}, {M})"
+    art = dp_fresh(config, state, dev)
+    collect = sharding.make_parallel_collect(art.explorer, mesh, DP["K"],
+                                             sim.train_seed_offset)
+    res = {}
+    collect_s = _timed(lambda: res.update(out=collect(
+        carry, DP["eps"], draws, graphed=True)))
+    _, traj = res["out"]
+    for name, g, w in zip(want._fields, traj, want):
+        if not torch.equal(g, w):
+            raise RuntimeError(f"{label}: the split collection's {name} "
+                               f"differs from one device's in "
+                               f"{int((g != w).sum())} entries")
+    row = dict(data=D, model=M, collect_capture_s=collect_s)
+    for name, lr, use_td in (("sgd", tc.il_learning_rate, False),
+                             ("adam", tc.rl_learning_rate, True)):
+        runs = {}
+        for mode in ("eager", "graphed"):
+            par = sharding.ParallelTrainer(
+                dp_fresh(config, state, dev, name, lr).trainer, mesh)
+            aux = {}
+            wall = _timed(lambda: aux.update(a=par.optimize(
+                buffer, idx, use_td, graphed=mode == "graphed")))
+            runs[mode] = (par, aux["a"], wall)
+        par, aux, capture_s = runs["graphed"]
+        _state_equal(f"{label} {name}: graphed step vs eager",
+                     runs["eager"][0].state_dict(), par.state_dict())
+        dp_ranks_agree(par, f"{label} {name}")
+        sub = dict(capture_s=capture_s, value_loss=float(aux.value_loss))
+        if name == "sgd":
+            one_state, one_aux = one
+            rel = abs(float(aux.value_loss) - float(one_aux.value_loss)) \
+                / abs(float(one_aux.value_loss))
+            err = max(float((par.state_dict()["params"][k] - v).abs().max())
+                      for k, v in one_state["params"].items())
+            if rel > DP_LOSS_REL or err > DP_PARAM_ATOL:
+                raise RuntimeError(f"{label}: the step against one device: "
+                                   f"value loss rel {rel}, params {err}")
+            sub.update(value_loss_rel_vs_one=rel, max_param_err_vs_one=err)
+        else:   # Adam steps/s in turns, the graph captured above
+            walls = {"eager": [], "graphed": []}
+            for mode in ("eager", "graphed", "graphed", "eager"):
+                steps = DP["sgd_timed"][mode == "eager"]
+                ti = rb.sample_indices(buffer, gen, (steps, tc.batch_size))
+                p = runs[mode][0]
+                walls[mode].append(_timed(lambda: p.optimize(
+                    buffer, ti, use_td, graphed=mode == "graphed")) / steps)
+            sub.update(sgd_steps_per_s=1 / statistics.median(
+                walls["graphed"]), sgd_steps_per_s_eager=1 / statistics
+                .median(walls["eager"]), step_ms=[1e3 * w for w in
+                                                  walls["graphed"]],
+                step_ms_eager=[1e3 * w for w in walls["eager"]])
+        row[name] = sub
+    print(f"{label}: split collection == one device (B={DP['B']}, "
+          f"{DP['K']} steps); SGD step vs one device: value loss rel "
+          f"{row['sgd']['value_loss_rel_vs_one']:.2e}, params "
+          f"{row['sgd']['max_param_err_vs_one']:.2e}; graphed == eager for "
+          f"SGD and Adam, ranks identical; Adam "
+          f"{row['adam']['sgd_steps_per_s']:.0f} steps/s graphed, "
+          f"{row['adam']['sgd_steps_per_s_eager']:.1f} eager (capture "
+          f"{row['adam']['capture_s']:.2f} s)", flush=True)
+    return row
+
+
+def dp_cli_checks(dev):
+    """``cli.train --debug --mesh_data 2 --mesh_model 2`` at mp_separate to
+    its end, and ``--multihost`` as two gloo processes against
+    ``--mesh_data 2`` as threads at toy counts, bit for bit."""
+    from relationalgraphlearning_tpu_torch.cli import train as train_cli
+
+    work = OUT_DIR / "phase12"
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    t = time.perf_counter()
+    result = train_cli.main(["--config", str(TRAIN_CONFIG), "--debug",
+                             "--mesh_data", "2", "--mesh_model", "2",
+                             "--output_dir", str(work / "mesh_debug")])
+    debug_s = time.perf_counter() - t
+    losses = [result[k] for k in ("il_value_loss", "value_loss", "sp_loss")]
+    if (result["episodes"] < 40 or not all(map(math.isfinite, losses))
+            or not ckpt.exists(str(work / "mesh_debug" / "rl_model"))):
+        raise RuntimeError(f"cli.train --debug on a (2, 2) mesh: {result}")
+    print(f"cli.train --debug --mesh_data 2 --mesh_model 2: {debug_s:.1f} s"
+          f", {result['episodes']} RL episodes, final val success "
+          f"{result['success_rate']:.3f}, losses {losses}", flush=True)
+
+    cfg = work / "toy_config.py"
+    cfg.write_text(DP_TOY)
+    t = time.perf_counter()
+    train_cli.main(["--config", str(cfg), "--output_dir",
+                    str(work / "threads"), *DP_TOY_FLAGS, "--mesh_data", "2"])
+    threads_s = time.perf_counter() - t
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, NPROC="2",
+               JAX_COORDINATOR=f"localhost:{port}")
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "relationalgraphlearning_tpu_torch.cli.train",
+         "--config", str(cfg), "--output_dir", str(work / "procs"),
+         *DP_TOY_FLAGS, "--multihost"], cwd=ROOT,
+        env=dict(env, PROC_ID=str(i)), stdin=subprocess.DEVNULL,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    procs_s = time.perf_counter() - t
+    (work / "procs.log").write_text("\n".join(logs))
+    if [p.returncode for p in procs] != [0, 0]:
+        raise RuntimeError(f"cli.train --multihost: exit codes "
+                           f"{[p.returncode for p in procs]}:\n"
+                           f"{logs[0][-3000:]}\n{logs[1][-3000:]}")
+    _state_equal("cli.train --multihost (2 gloo processes) vs --mesh_data 2",
+                 ckpt.load(str(work / "threads" / "rl_model")),
+                 ckpt.load(str(work / "procs" / "rl_model")))
+    print(f"cli.train --multihost as 2 gloo processes == --mesh_data 2 as "
+          f"threads, rl_model bit for bit ({procs_s:.1f} s against "
+          f"{threads_s:.1f} s)", flush=True)
+    shutil.rmtree(work / "mesh_debug")
+    return dict(debug_mesh_s=debug_s, debug_result=result,
+                toy_threads_s=threads_s, toy_procs_s=procs_s)
+
+
+def native_orca_check(dev):
+    """``NativeORCA`` (the C++ solver through the host) against
+    ``envs/orca.py`` on the card, on the humans of 64 test cases: the
+    reference's tolerance for the two implementations; and equal to the
+    host call on the same arrays."""
+    from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
+    from relationalgraphlearning_tpu_torch.envs.orca import (
+        centralized_orca_step)
+    from relationalgraphlearning_tpu_torch.runtime import native_orca
+
+    if not native_orca.native_orca_available():
+        raise RuntimeError("native ORCA: the C++ build failed")
+    config = load_config_module(str(TRAIN_CONFIG))
+    env = CrowdSim(config.env, device=dev)
+    state, _ = env.reset(range(64), config.env.sim.test_seed_offset)
+    h = state.humans
+    pos, vel, rad = h[..., :2], h[..., 2:4], h[..., T.RADIUS]
+    to = h[..., T.GX:T.GY + 1] - pos
+    pref = to / torch.clamp(torch.linalg.norm(to, dim=-1, keepdim=True),
+                            min=1e-9) * h[..., T.VPREF:T.VPREF + 1]
+    vmax = h[..., T.VPREF]
+    active = torch.ones_like(vmax, dtype=torch.bool)
+    t = time.perf_counter()
+    got = native_orca.NativeORCA()(pos, vel, rad, pref, vmax, active)
+    native_s = time.perf_counter() - t
+    want = centralized_orca_step(pos, vel, rad, pref, vmax, active,
+                                 ORCAParams())
+    host = native_orca.orca_step_batch_native(
+        *(a.cpu().numpy() for a in (pos, vel, rad, pref, vmax)),
+        active.cpu().numpy())
+    diff = (got - want).abs()
+    out = dict(cases=64, humans=int(h.shape[1]), device=str(got.device),
+               median_abs_diff=float(diff.median()),
+               max_abs_diff=float(diff.max()), seconds=native_s,
+               equals_host_call=bool(torch.equal(got.cpu(),
+                                                 torch.from_numpy(host))))
+    if (got.device != pos.device or not out["equals_host_call"]
+            or out["median_abs_diff"] >= 1e-3 or out["max_abs_diff"] >= 5e-2):
+        raise RuntimeError(f"native ORCA against envs/orca.py: {out}")
+    print(f"NativeORCA on the card's states (64 cases): median |diff| "
+          f"{out['median_abs_diff']:.2e}, max {out['max_abs_diff']:.2e} "
+          f"against envs/orca.py; == the host call", flush=True)
+    return out
+
+
+def render_check(dev):
+    """One ``mprl_td`` test case rolled on the card and drawn to a GIF."""
+    from relationalgraphlearning_tpu_torch.utils import render
+
+    config, env, policy, _ = eval_setup("mprl_td", "model_predictive_rl",
+                                        {}, dev)
+    t = time.perf_counter()
+    traj = render.rollout_trajectory(env, policy,
+                                     config.env.sim.test_seed_offset, 0)
+    path = OUT_DIR / "mprl_td_case0.gif"
+    render.render_video(traj, str(path))
+    out = dict(outcome=traj.outcome_name, steps=traj.steps,
+               attention_rows=len(traj.attention), gif=str(path.name),
+               gif_bytes=path.stat().st_size,
+               seconds=time.perf_counter() - t)
+    if out["gif_bytes"] == 0 or path.read_bytes()[:3] != b"GIF":
+        raise RuntimeError(f"render: {out}")
+    print(f"render: mprl_td test case 0 ({out['outcome']}, {out['steps']} "
+          f"steps) -> {path.name}, {out['gif_bytes']} bytes", flush=True)
+    return out
+
+
+def dp_phase(dev, report):
+    """Slice 11: the data- and tensor-parallel path (``parallel/sharding
+    .py``) at mp_separate's width on three meshes, the train CLI over a
+    mesh and as processes, native ORCA and the renderer. Kernel counts are
+    zeroed before the phase and read after it: none of #1-#7 runs."""
+    t0 = time.perf_counter()
+    captured.reset_launch_counts()
+    config = load_config_module(str(TRAIN_CONFIG))
+    tc, sim = config.train, config.env.sim
+    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+    art.policy.init_params(torch.Generator().manual_seed(0))
+    art.trainer.update_target()
+    state = art.trainer.state_dict()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    offset = sim.train_seed_offset
+    carry = art.explorer.init_carry(DP["B"], offset)
+    draws = art.explorer.draws(gen, DP["K"], DP["B"])
+    _, want = art.explorer.collect(carry, DP["K"], offset, DP["eps"], draws,
+                                   graphed=True)
+    buffer = rb.create(64, sim.human_num, device=dev)
+    art.explorer.update_memory(buffer, want, art.trainer.target.value, False)
+    idx = rb.sample_indices(buffer, gen, (1, tc.batch_size))
+    one = dp_fresh(config, state, dev, "sgd", tc.il_learning_rate).trainer
+    one_aux = one.optimize(buffer, idx, False, graphed=False)
+    rows = [dp_mesh_row(config, state, carry, draws, want, buffer, idx,
+                        (one.state_dict(), one_aux), D, M, dev, gen)
+            for D, M in DP["meshes"]]
+    cli = dp_cli_checks(dev)
+    orca = native_orca_check(dev)
+    gif = render_check(dev)
+    launches = captured.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"the dp/tp path launched kernels: {launches}")
+    one_device = {r["optimizer"]: r["sgd_steps_per_s"]
+                  for r in report.get("train", {}).get("sgd", [])}
+    seconds = time.perf_counter() - t0
+    report["dp"] = dict(rows=rows, cli=cli, native_orca=orca, render=gif,
+                        launches=launches, seconds=seconds,
+                        one_device_steps_per_s_phase9=one_device,
+                        parameters=sum(p.numel() for p in art.trainer.params),
+                        note="data x model ranks as threads on one card")
+    print(f"phase 12: {seconds:.1f} s (one-device Adam steps/s in phase 9: "
+          f"{one_device.get('adam')})", flush=True)
 
 
 def main() -> int:
@@ -2328,6 +2719,7 @@ def main() -> int:
     train_phase(dev, report)
     baselines_phase(dev, report)
     partition = partition_phase(dev, flops, bw, report)
+    dp_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does);
     # #2's only path is the halo attention with a value table
     path_launches = {

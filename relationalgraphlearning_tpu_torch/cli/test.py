@@ -6,19 +6,31 @@ factory: MP-RGL, the one-step baselines (``cadrl``, ``sarl``, ``lstm_rl``,
 
 Loads the config from ``--model_dir`` (its ``config.py``, read by the
 port's loader; the defaults when it has none) and, for a trained policy,
-the weights: the port's own ``rl_model_best`` checkpoint when the directory
-holds one (a run of the port's ``cli/train.py``), else the weights exported
-from the JAX package's checkpoint
+the snapshot the reference picks (``snapshot``): ``il_model`` with ``--il``
+or ``--checkpoint il``, ``rl_model`` with ``--checkpoint final``,
+``rl_model_best`` with ``--checkpoint best`` or when it exists, else
+``rl_model``. A directory with a checkpoint of the port's ``cli/train.py``
+is read as such; one with none (a run of the JAX package) gives its
+``rl_model_best`` through the weights exported from it
 (``relationalgraphlearning_tpu_torch/checkpoints/<model>.npz``, the model
-named by the directory's name). It runs the seeded cases of ``--phase``
-through ``Explorer.run_cases`` on the card (``--device cpu`` on the CPU)
-and prints the same record as the reference. The record goes to ``--out``
-when given (into a directory ``--out`` as the reference's
-``eval_<phase><suffix>.json``); nothing is written into ``--model_dir``.
+named by the directory's name). With no snapshot found, a trainable policy
+is evaluated at a random init, with a warning and so named in the record.
+It runs the seeded cases of ``--phase`` through ``Explorer.run_cases`` on
+the card (``--device cpu`` on the CPU) and prints the same record as the
+reference. The record goes to ``--out`` when given (into a directory
+``--out`` as the reference's ``eval_<phase><suffix>.json``); nothing is
+written into ``--model_dir``. ``--visualize`` rolls ``--test_case`` alone
+and draws it (``--traj`` a PNG, ``--video_file`` a GIF or an mp4) in place
+of the evaluation (``utils/render.py``).
 
     python -m relationalgraphlearning_tpu_torch.cli.test \\
         --model_dir results/mprl_td [--planning_depth 1] [--test_size 500] \\
         [--device cpu] [--out eval.json]
+    python -m relationalgraphlearning_tpu_torch.cli.test \\
+        --model_dir data/mp_separate_s0 --checkpoint final
+    python -m relationalgraphlearning_tpu_torch.cli.test \\
+        --model_dir results/mprl_td --visualize --test_case 3 \\
+        --traj case3.png --video_file case3.gif
     python -m relationalgraphlearning_tpu_torch.cli.test --policy sarl \\
         --model_dir results/sarl
     python -m relationalgraphlearning_tpu_torch.cli.test --policy orca \\
@@ -30,10 +42,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -46,7 +60,11 @@ from relationalgraphlearning_tpu_torch.policies.factory import (
 from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training.explorer import Explorer
 
+log = logging.getLogger(__name__)
+
 PLANNER = ("planning_depth", "planning_width", "sparse_search")
+SNAPSHOTS = ("il_model", "rl_model", "rl_model_best")
+RANDOM_INIT = "none (RANDOM INIT — no checkpoint found)"
 ACTION_SPACE = ("rotation_constraint", "rotation_samples")
 
 
@@ -87,24 +105,66 @@ def configure(model_dir: str, human_num=None, **overrides):
     return config, mprl_over
 
 
-def weights_of(model_dir: str) -> str:
-    """Where the weights of ``model_dir`` come from: its torch checkpoint
-    ``rl_model_best``, else the exported ``checkpoints/<model>.npz``."""
-    best = os.path.join(model_dir, "rl_model_best")
-    if ckpt.exists(best):
-        return best
-    model = os.path.basename(os.path.normpath(model_dir))
-    return str(checkpoints.weights_path(model))
+def snapshot(model_dir: str, il: bool = False,
+             checkpoint: Optional[str] = None, exists=ckpt.exists) -> str:
+    """The snapshot the reference evaluates (``cli/test.py:128-137``):
+    ``il_model`` for ``il`` or ``checkpoint="il"``, ``rl_model`` for
+    ``"final"``, ``rl_model_best`` for ``"best"`` or when it ``exists``,
+    else ``rl_model``."""
+    if il or checkpoint == "il":
+        return "il_model"
+    if checkpoint == "final":
+        return "rl_model"
+    if checkpoint == "best" or exists(os.path.join(model_dir,
+                                                   "rl_model_best")):
+        return "rl_model_best"
+    return "rl_model"
+
+
+def weights_of(model_dir: str, il: bool = False,
+               checkpoint: Optional[str] = None) -> Optional[str]:
+    """Where the weights of ``model_dir``'s ``snapshot`` come from: its
+    torch checkpoint when the directory holds any (a run of the port); in a
+    directory with none (a run of the JAX package, whose orbax snapshots
+    the port does not read) its ``rl_model_best`` exported as
+    ``checkpoints/<model>.npz``. None: no such snapshot (a random init)."""
+    if any(ckpt.exists(os.path.join(model_dir, s)) for s in SNAPSHOTS):
+        path = os.path.join(model_dir, snapshot(model_dir, il, checkpoint))
+        return path if ckpt.exists(path) else None
+    name = snapshot(model_dir, il, checkpoint, exists=os.path.isdir)
+    if name == "rl_model_best":
+        model = os.path.basename(os.path.normpath(model_dir))
+        return str(checkpoints.weights_path(model))
+    if os.path.isdir(os.path.join(model_dir, name)):
+        raise FileNotFoundError(
+            f"{os.path.join(model_dir, name)} is a snapshot of the JAX "
+            "package; only its rl_model_best is exported for the port")
+    return None
+
+
+def loaded_name(weights: Optional[str], trainable: bool) -> str:
+    """The record's ``"checkpoint"``: the snapshot loaded, as the
+    reference names it."""
+    if not trainable:
+        return "none (untrained policy)"
+    if weights is None:
+        return RANDOM_INIT
+    if weights.endswith(".npz"):
+        return "rl_model_best"
+    return os.path.basename(os.path.normpath(weights))
 
 
 def build(config, policy_name: str, weights, device,
           policy_kwargs: dict | None = None):
-    """(env, policy with the ``weights`` (``weights_of``; None for a policy
-    without parameters), explorer)."""
+    """(env, policy with the ``weights`` (``weights_of``; None: a policy
+    without parameters, or a trainable one at a seeded random init),
+    explorer)."""
     env = CrowdSim(config.env, device=device)
     policy = make_policy(policy_name, config.policy, config.env,
                          device=device, **(policy_kwargs or {}))
-    if weights and weights.endswith(".npz"):
+    if weights is None and policy_factory[policy_name].trainable:
+        policy.init_params(torch.Generator().manual_seed(0))
+    elif weights and weights.endswith(".npz"):
         model = os.path.basename(weights)[:-len(".npz")]
         policy.load_flax(checkpoints.load_flax_tree(model))
     elif weights:
@@ -125,11 +185,31 @@ def record_suffix(args) -> str:
         suffix += f"_rc{args.rotation_constraint:g}"
     if args.rotation_samples is not None:
         suffix += f"_rs{args.rotation_samples}"
+    if args.checkpoint:
+        suffix += f"_{args.checkpoint}"
     if args.safety_space is not None:
         suffix += f"_ss{args.safety_space:g}"
     if args.orca_time_horizon is not None:
         suffix += f"_th{args.orca_time_horizon:g}"
     return suffix
+
+
+def visualize(env, policy, offset: int, args):
+    """``--visualize``: one test case rolled and drawn -> its
+    ``EpisodeTrajectory``."""
+    from relationalgraphlearning_tpu_torch.utils.render import (
+        render_traj, render_video, rollout_trajectory)
+
+    traj = rollout_trajectory(env, policy, offset, args.test_case)
+    print(f"case {args.test_case}: outcome={traj.outcome_name} "
+          f"nav_time={traj.nav_time:.2f}s return="
+          f"{traj.cumulative_reward:.4f}", file=sys.stderr)
+    for path, draw in ((args.traj, render_traj),
+                       (args.video_file, render_video)):
+        if path:
+            draw(traj, path)
+            print(f"wrote {path}", file=sys.stderr)
+    return traj
 
 
 def main(argv=None):
@@ -138,6 +218,12 @@ def main(argv=None):
     p.add_argument("--policy", default="model_predictive_rl",
                    choices=sorted(policy_factory))
     p.add_argument("--model_dir", required=True)
+    p.add_argument("--il", action="store_true",
+                   help="evaluate the IL snapshot")
+    p.add_argument("--checkpoint", default=None,
+                   choices=[None, "il", "best", "final"],
+                   help="which snapshot to evaluate (default: best if "
+                        "present, else final rl_model)")
     p.add_argument("--phase", default="test", choices=["val", "test"])
     p.add_argument("--test_size", type=int, default=None)
     p.add_argument("--human_num", type=int, default=None)
@@ -152,6 +238,14 @@ def main(argv=None):
     p.add_argument("--orca_time_horizon", type=float, default=None,
                    help="the ORCA robot policy's time horizon (only for "
                         "--policy orca; the humans keep the env's)")
+    p.add_argument("--visualize", action="store_true",
+                   help="roll --test_case alone and draw it")
+    p.add_argument("--test_case", type=int, default=0)
+    p.add_argument("--traj", default=None,
+                   help="save the trajectory plot to this PNG")
+    p.add_argument("--video_file", default=None,
+                   help="save the episode's animation (.gif; .mp4 needs "
+                        "ffmpeg)")
     p.add_argument("--device", default="cuda",
                    help="torch device; the card unless asked (cpu)")
     p.add_argument("--out", default=None,
@@ -174,12 +268,20 @@ def main(argv=None):
         args.model_dir, args.human_num,
         **{k: getattr(args, k) for k in PLANNER + ACTION_SPACE})
     trained = policy_factory[args.policy].trainable
-    weights = weights_of(args.model_dir) if trained else None
+    weights = weights_of(args.model_dir, args.il, args.checkpoint) \
+        if trained else None
+    checkpoint_loaded = loaded_name(weights, trained)
+    if trained and weights is None:
+        log.warning("no %s snapshot in %s — evaluating random init",
+                    snapshot(args.model_dir, args.il, args.checkpoint),
+                    args.model_dir)
     env, policy, explorer = build(config, args.policy, weights, args.device,
                                   policy_kwargs)
     sim = config.env.sim
     offset = sim.test_seed_offset if args.phase == "test" \
         else sim.val_seed_offset
+    if args.visualize:
+        return visualize(env, policy, offset, args)
     size = args.test_size or (sim.test_size if args.phase == "test"
                               else sim.val_size)
     t0 = time.perf_counter()
@@ -196,8 +298,7 @@ def main(argv=None):
           file=sys.stderr)
     record = {
         "policy": args.policy, "phase": args.phase, "cases": size,
-        "checkpoint": "rl_model_best" if trained
-        else "none (untrained policy)",
+        "checkpoint": checkpoint_loaded,
         "human_num": sim.human_num,
         "robot_kinematics": config.env.robot_kinematics,
         "git_sha": _git_sha(),

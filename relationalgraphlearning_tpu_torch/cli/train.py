@@ -13,9 +13,21 @@ prompts, so an unattended run cannot hang.
         --config configs/icra_benchmark/mp_separate.py --randomseed 0 \\
         --output_dir data/mp_separate_s0
 
-Not ported yet: ``--platform`` (replaced by ``--device``), the multi-device
-flags ``--mesh_data``/``--mesh_model``/``--multihost`` (ROADMAP Queue A 11)
-and ``--profile_dir`` (Queue A 12).
+``--mesh_data D --mesh_model M`` trains over a D × M mesh of rank threads
+on the device (``parallel/sharding.py``: the env batch and minibatches
+split over data, the linear layers sharded over model, a step of all ranks
+one CUDA graph on the card). ``--multihost`` starts ``torch.distributed``
+from ``JAX_COORDINATOR``/``NPROC``/``PROC_ID`` (``parallel/distributed.py``)
+and runs the data axis as those processes, eagerly (gloo through host
+memory when the processes share a card); only process 0 writes the output
+directory. ``--profile_dir`` writes a ``torch.profiler`` Chrome trace of
+the run (``utils/profiling.py``). ``--platform`` is ``--device`` here.
+
+    python -m relationalgraphlearning_tpu_torch.cli.train --debug \\
+        --mesh_data 2 --mesh_model 2 --output_dir data/mesh
+    JAX_COORDINATOR=localhost:8476 NPROC=2 PROC_ID=$i \\
+        python -m relationalgraphlearning_tpu_torch.cli.train --debug \\
+        --multihost --output_dir data/procs        # i = 0, 1
 """
 
 from __future__ import annotations
@@ -51,21 +63,50 @@ def main(argv=None):
     p.add_argument("--rl_learning_rate", type=float, default=None)
     p.add_argument("--val_size", type=int, default=None,
                    help="override config.env.sim.val_size")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of the run here")
+    p.add_argument("--multihost", action="store_true",
+                   help="initialize torch.distributed from JAX_COORDINATOR/"
+                        "NPROC/PROC_ID; the processes are the data axis")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="data-parallel mesh axis size (0 = no mesh; env "
+                        "batch + minibatches split, gradients summed)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel mesh axis size")
     args = p.parse_args(argv)
 
-    if os.path.exists(args.output_dir) and not (args.resume
-                                                or args.overwrite):
+    comm = None
+    if args.multihost:
+        from relationalgraphlearning_tpu_torch.parallel import distributed
+        from relationalgraphlearning_tpu_torch.parallel.comm import DistComm
+
+        if args.mesh_model != 1:
+            p.error("--multihost runs the data axis as processes; "
+                    "--mesh_model must be 1")
+        if distributed.initialize():
+            comm = DistComm()
+            if args.mesh_data not in (0, comm.size):
+                p.error(f"--mesh_data {args.mesh_data} with {comm.size} "
+                        "processes")
+    lead = comm is None or comm.rank == 0
+
+    if lead and os.path.exists(args.output_dir) and not (
+            args.resume or args.overwrite):
         p.error(f"{args.output_dir} exists; pass --overwrite to clear it "
                 "or --resume to continue from its checkpoints")
-    if args.overwrite and not args.resume and os.path.exists(
+    if comm is not None:
+        comm.barrier()  # the first process has looked before any writes
+    if lead and args.overwrite and not args.resume and os.path.exists(
             args.output_dir):
         shutil.rmtree(args.output_dir)
     os.makedirs(args.output_dir, exist_ok=True)
 
-    # file + stdout logging in the reference's format
-    log_file = os.path.join(args.output_dir, "output.log")
-    handlers = [logging.FileHandler(log_file, mode="a"),
-                logging.StreamHandler(sys.stdout)]
+    # file + stdout logging in the reference's format (the first process
+    # alone writes the file)
+    handlers: list = [logging.StreamHandler(sys.stdout)]
+    if lead:
+        handlers.append(logging.FileHandler(
+            os.path.join(args.output_dir, "output.log"), mode="a"))
     root = logging.getLogger()
     root.setLevel(logging.DEBUG if args.debug else logging.INFO)
     fmt = logging.Formatter("%(asctime)s, %(levelname)s: %(message)s",
@@ -78,14 +119,17 @@ def main(argv=None):
 
     from relationalgraphlearning_tpu_torch.configs.base import (
         Config, load_config_module)
+    from relationalgraphlearning_tpu_torch.parallel.mesh import make_mesh
     from relationalgraphlearning_tpu_torch.training.train_loop import (
         LoopOptions, train)
+    from relationalgraphlearning_tpu_torch.utils import profiling
 
     try:
         if args.config:
             config = load_config_module(args.config)
-            shutil.copy(args.config,
-                        os.path.join(args.output_dir, "config.py"))
+            if lead:
+                shutil.copy(args.config,
+                            os.path.join(args.output_dir, "config.py"))
         else:
             config = Config()
         tc_over = {k: v for k, v in (
@@ -104,12 +148,18 @@ def main(argv=None):
         logging.info("policy: %s | config: %s | seed: %d | device: %s",
                      args.policy, args.config or "<default>",
                      args.randomseed, args.device)
-        result = train(
-            config, args.policy, args.output_dir, debug=args.debug,
-            resume=args.resume, seed=args.randomseed,
-            opts=LoopOptions(train_envs=args.train_envs,
-                             collect_steps=args.collect_steps),
-            device=args.device)
+        mesh = None
+        if args.mesh_data and comm is None:
+            mesh = make_mesh(data=args.mesh_data, model=args.mesh_model,
+                             device=args.device)
+        with profiling.trace(args.profile_dir):
+            result = train(
+                config, args.policy, args.output_dir, debug=args.debug,
+                resume=args.resume, seed=args.randomseed,
+                opts=LoopOptions(train_envs=args.train_envs,
+                                 collect_steps=args.collect_steps,
+                                 mesh=mesh, comm=comm),
+                device=args.device)
         logging.info("done: %s", result)
     finally:
         for h in handlers:

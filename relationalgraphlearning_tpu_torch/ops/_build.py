@@ -29,6 +29,14 @@ MAX_SMEM_BYTES = 232_448
 
 _loaded: dict = {}
 _load_lock = threading.Lock()   # ranks run as threads load at once
+_count_lock = threading.Lock()  # ... and count their launches at once
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on ``wrapper.launches`` (ranks as threads count
+    into the same counter during one capture)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def nvcc() -> str:

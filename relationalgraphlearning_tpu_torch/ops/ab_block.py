@@ -112,7 +112,7 @@ def ab_block_attention(qb: Tensor, xg: Tensor, mbits: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"ab_block_attention (C={C}, d={d}, "
                         f"{qb.dtype})")
-    ab_block_attention.launches += 1
+    _build.count_launch(ab_block_attention)
     return out
 
 

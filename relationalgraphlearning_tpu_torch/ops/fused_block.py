@@ -189,7 +189,7 @@ def fused_block_attention_packed_shared(
             qb, x, cand, mbits, epilogue, stable)
     out = _launch(qb, x, x, cand, mbits, True, epilogue, stable)
     with _count_lock:
-        fused_block_attention_packed_shared.launches += 1
+        _build.count_launch(fused_block_attention_packed_shared)
     return out
 
 
@@ -202,7 +202,7 @@ def fused_block_attention_packed(
             qb, x, v, cand, mbits, epilogue, stable)
     out = _launch(qb, x, v, cand, mbits, False, epilogue, stable)
     with _count_lock:
-        fused_block_attention_packed.launches += 1
+        _build.count_launch(fused_block_attention_packed)
     return out
 
 
@@ -252,7 +252,7 @@ def fused_block_attention(qb: Tensor, xg: Tensor, vg: Tensor,
             out.data_ptr(), nb, B, C, d, dv,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"fused_block_attention r3 (C={C}, d={d})")
-    fused_block_attention.launches += 1
+    _build.count_launch(fused_block_attention)
     return out
 
 

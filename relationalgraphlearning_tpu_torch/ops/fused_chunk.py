@@ -205,7 +205,7 @@ def chunk_block_attention(q: Tensor, x: Tensor, chunk_starts: Tensor,
             _EPILOGUES[epilogue], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"chunk_block_attention (ntot={ntot}, "
                         f"d={d}, groups={groups})")
-    chunk_block_attention.launches += 1
+    _build.count_launch(chunk_block_attention)
     return out
 
 

@@ -106,7 +106,7 @@ def fused_gather_attention(q: Tensor, x: Tensor, v: Tensor, cols: Tensor,
             None if mask is None else mask.data_ptr(), out.data_ptr(), nq, K,
             d, dv, int(shared), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"fused_gather_attention (K={K}, d={d})")
-    fused_gather_attention.launches += 1
+    _build.count_launch(fused_gather_attention)
     return out
 
 

@@ -40,7 +40,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Initialise ``torch.distributed`` from the arguments or the
     environment (``JAX_COORDINATOR``, ``NPROC``, ``PROC_ID`` when an
-    argument is None): NCCL where there is a card, gloo otherwise. Returns
+    argument is None): NCCL where each process can have a card of its
+    own, gloo otherwise. Returns
     True when a multi-process group was initialised, False for one process
     (a no-op: the program runs as it would without it)."""
     import torch.distributed as dist
@@ -54,7 +55,13 @@ def initialize(coordinator_address: Optional[str] = None,
     if coordinator_address is None or num_processes <= 1:
         log.info("single-process run (no coordinator configured)")
         return False
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    # NCCL when every process can have a card of its own; gloo otherwise
+    # (processes sharing one card: NCCL refuses two ranks on one device)
+    nccl = (torch.cuda.is_available()
+            and torch.cuda.device_count() >= num_processes)
+    backend = "nccl" if nccl else "gloo"
+    if nccl:
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id)

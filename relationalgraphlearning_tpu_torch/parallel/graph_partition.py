@@ -225,6 +225,7 @@ def _gcn_layers(model: SparseRGL, H: Tensor, aggregate) -> Tensor:
 def block_rgl_rank(comm, model: SparseRGL, halo: int, states: Tensor,
                    cand: Tensor, emask: Tensor) -> Tensor:
     """Per rank: SparseRGL's block forward on this rank's rows."""
+    comm = comm.axis("data")  # a model axis replicates the forward
     return _gcn_layers(model, model.w_h(states), lambda q, H: (
         block_halo_attention(comm, q, H, H, cand, emask, halo)))
 
@@ -254,6 +255,7 @@ def sparse_rgl_rank(comm, model: SparseRGL, method: str, states: Tensor,
     aggregation by ring or all-gather."""
     agg = (ring_neighbor_attention if method == "ring"
            else allgather_neighbor_attention)
+    comm = comm.axis("data")  # a model axis replicates the forward
     return _gcn_layers(model, model.w_h(states),
                        lambda q, H: agg(comm, q, H, H, cols, mask))
 

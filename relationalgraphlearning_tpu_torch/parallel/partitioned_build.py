@@ -197,8 +197,9 @@ def _local_sort(sh: CrowdShards, spec: BandSpec) -> CrowdShards:
     """Sort the slab by the GLOBAL grid-cell key (actives first): the
     row-major raster of ``block_graph.spatial_sort``, so the ranks' orders
     concatenated are a global spatial order."""
-    origin = torch.tensor([spec.x0, spec.y0], dtype=sh.pos.dtype,
-                          device=sh.pos.device)
+    # the origin as a fill, not a host copy: a rank runs inside a capture
+    origin = torch.stack([sh.pos.new_full((), spec.x0),
+                          sh.pos.new_full((), spec.y0)])
     ij = torch.floor((sh.pos - origin) / spec.cell).to(torch.int32)
     key = ij[:, 0] * spec.grid_w + ij[:, 1]
     key = torch.where(sh.active, key, _BIGKEY)
@@ -253,10 +254,10 @@ def _build_graph(comm, sh: CrowdShards, spec: BandSpec):
     # extended region, else a true neighbour could hide two bands away
     kth = torch.sqrt(torch.where(colvalid[:, -1], -negd[:, -1], 0.0))
     f32 = dict(dtype=torch.float32, device=dev)
-    lo = (torch.tensor(-torch.inf, **f32) if me == 0 else
-          torch.tensor(me - 1, **f32) * spec.band_w + spec.x0)
-    hi = (torch.tensor(torch.inf, **f32) if me == spec.D - 1 else
-          torch.tensor(me + 2, **f32) * spec.band_w + spec.x0)
+    lo = (torch.full((), -torch.inf, **f32) if me == 0 else
+          torch.full((), me - 1, **f32) * spec.band_w + spec.x0)
+    hi = (torch.full((), torch.inf, **f32) if me == spec.D - 1 else
+          torch.full((), me + 2, **f32) * spec.band_w + spec.x0)
     margin = torch.minimum(sh.pos[:, 0] - lo, hi - sh.pos[:, 0])
     n_act = comm.psum(sh.active.sum())
     # fewer than K neighbours in reach while the crowd has more than K
@@ -311,6 +312,7 @@ def mega_rollout_rank(comm, spec: BandSpec, net: SparseValueNet,
                       rebuild_every: int, sh: CrowdShards):
     """Per rank: ``steps // rebuild_every`` chunks of one rebuild and R
     steps. Returns (shards', per-chunk diagnostics [chunks] each)."""
+    comm = comm.axis("data")  # a model axis replicates the rollout
     diags = []
     for _ in range(steps // rebuild_every):
         sh, mig = _migrate(comm, sh, spec)
@@ -339,30 +341,45 @@ def mega_rollout_rank(comm, spec: BandSpec, net: SparseValueNet,
 
 def partitioned_mega_rollout(mesh: Mesh, spec: BandSpec, net: SparseValueNet,
                              orca_params: ORCAParams, steps: int,
-                             rebuild_every: int):
+                             rebuild_every: int, graphed: bool = False):
     """The partitioned mega-crowd rollout on ``mesh``'s data axis (D =
     ``spec.D`` ranks). ``net`` is a ``SparseValueNet`` (block semantics,
     whatever its backend). Returns ``run(shards) -> (shards', diag)``:
     ``diag`` holds the minimum band and window coverage over the chunks,
-    the migration's total ``overflow`` and ``lost``, and the mean value."""
+    the migration's total ``overflow`` and ``lost``, and the mean value.
+
+    ``graphed``: the whole rollout of every rank, each chunk's rebuild
+    included (nothing in it waits on the host), is captured at the first
+    call as one CUDA graph (``Mesh.capture``, the reference's one
+    ``shard_map`` program) and replayed after; ``run.graph`` holds it
+    (its ``launches``). False: the ranks run eagerly."""
     if steps % rebuild_every:
         raise ValueError(f"steps={steps} is not a multiple of "
                          f"rebuild_every={rebuild_every}")
     if mesh.data != spec.D:
         raise ValueError(f"mesh of {mesh.data} ranks for D={spec.D} bands")
 
+    def rank(comm, s):
+        return mega_rollout_rank(comm, spec, net, orca_params, steps,
+                                 rebuild_every, s)
+
     @torch.no_grad()
     def run(sh: CrowdShards):
-        sh, diags = mesh.run(
-            lambda comm, s: mega_rollout_rank(comm, spec, net, orca_params,
-                                              steps, rebuild_every, s),
-            row_sharded=(sh,), out_specs=(ROW, REP))
+        if not graphed:
+            sh, diags = mesh.run(rank, row_sharded=(sh,),
+                                 out_specs=(ROW, REP))
+        else:
+            if run.graph is None:
+                run.graph = mesh.capture(rank, row_sharded=(sh,),
+                                         out_specs=(ROW, REP))
+            sh, diags = tree_map(torch.clone, run.graph(sh))
         return sh, {"band_cov": diags["band_cov"].amin(),
                     "win_cov": diags["win_cov"].amin(),
                     "overflow": diags["overflow"].sum(),
                     "lost": diags["lost"].sum(),
                     "vmean": diags["vmean"].mean()}
 
+    run.graph = None
     return run
 
 

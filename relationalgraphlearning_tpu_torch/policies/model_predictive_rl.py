@@ -103,6 +103,11 @@ class ModelPredictiveRLPolicy:
     def next_state(self, robot: Tensor, humans: Tensor, action: Tensor):
         return self.networks.next_state(robot, humans, action)
 
+    def attention(self, robot: Tensor, humans: Tensor) -> Tensor:
+        """The value graph model's relation matrix [..., N+1, N+1], for
+        visualization."""
+        return self.networks.attention(robot, humans)
+
     def _gamma_bar(self, robot: Tensor) -> Tensor:
         return torch.pow(self.gamma,
                          self.env_cfg.time_step * robot[..., T.VPREF])

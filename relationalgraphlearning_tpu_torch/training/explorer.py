@@ -353,9 +353,13 @@ class Explorer:
                             z(*Tb, dtype=torch.int64), z(*Tb), carry, traj)
 
     @torch.no_grad()
-    def _collect_step(self, w: _CollectWork, table: CaseTable) -> None:
+    def _collect_step(self, w: _CollectWork, table: CaseTable,
+                      stride: Optional[int] = None) -> None:
         """One decision, env step, record and auto-reset of every env,
-        written in place into ``w`` (``explorer.py:205-256``)."""
+        written in place into ``w`` (``explorer.py:205-256``). A reset env
+        moves on by ``stride`` cases: the batch's size, or the global
+        batch's when ``w`` holds one rank's envs of it
+        (``sharding.ParallelCollect``)."""
         c, row = w.carry, w.t
         states = c.states
         draws = (w.explore_idx.index_select(0, row)[0],
@@ -377,13 +381,14 @@ class Explorer:
         # then a select by done (explorer.py:227-244)
         done = out.done
         B = done.shape[0]
+        stride = B if stride is None else stride
         fresh = (table.robot.index_select(0, c.case_counter),
                  table.humans.index_select(0, c.case_counter),
                  torch.zeros_like(c.step), torch.zeros_like(c.done),
                  torch.full_like(c.outcome, T.OUTCOME_NOTHING))
         new = [torch.where(done.reshape((B,) + (1,) * (old.dim() - 1)), f,
                            old) for f, old in zip(fresh, out.state)]
-        new += [torch.where(done, c.case_counter + B, c.case_counter),
+        new += [torch.where(done, c.case_counter + stride, c.case_counter),
                 torch.where(done, 0, c.ep_step + 1),
                 torch.where(done, 0.0, ep_return)]
         for dst, src in zip(c, new):

@@ -17,6 +17,14 @@ card and runs eagerly on the CPU; False is the eager loop), as the
 reference runs each as one jitted program. Random draws come from two
 generators seeded with ``seed``: the initial weights from a CPU one, the
 minibatch indices and the exploration from one on the device.
+
+``LoopOptions.mesh`` runs the collection and the SGD steps over a ("data",
+"model") ``Mesh`` (``parallel/sharding.py``): the env batch and each
+minibatch split over data, the nets' linear layers sharded over model, a
+step of all ranks one CUDA graph. ``LoopOptions.comm`` (``--multihost``)
+runs the data axis as ``torch.distributed`` processes instead, eagerly;
+every process holds the whole buffer and state, and only the first writes
+checkpoints and metrics.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ import torch
 
 from relationalgraphlearning_tpu_torch.configs.base import Config
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
+from relationalgraphlearning_tpu_torch.parallel.mesh import Mesh
+from relationalgraphlearning_tpu_torch.parallel.sharding import (
+    ParallelCollect, ParallelTrainer)
 from relationalgraphlearning_tpu_torch.policies.factory import make_policy
 from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
     ModelPredictiveRLPolicy)
@@ -51,13 +62,28 @@ IL_CHUNK = 2000  # imitation steps whose minibatch indices are drawn at once
 
 @dataclasses.dataclass
 class LoopOptions:
-    """Batching of the loop (the reference's; its ``mesh`` waits for ROADMAP
-    Queue A 11)."""
+    """Batching of the loop (the reference's), and where it runs."""
 
     train_envs: int = 16  # parallel envs during collection
     collect_steps: int = 64  # env steps per iteration per env
     eval_envs: int = 100
     graphed: Optional[bool] = None  # None: graphs on the card, eager on CPU
+    # a parallel.mesh.Mesh ("data", "model"): env batch and minibatches
+    # split over data, linear layers sharded over model (sharding.py);
+    # None: one device
+    mesh: Optional[Mesh] = None
+    # a parallel.comm.DistComm: the data axis as processes (--multihost)
+    comm: Optional[object] = None
+
+
+class _NoWriter:
+    """A process that is not the first writes no metrics."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class TrainerArtifacts(NamedTuple):
@@ -113,26 +139,51 @@ def train(config: Config, policy_name: str, output_dir: str,
             evaluation_interval=20, target_update_interval=20,
             checkpoint_interval=20, capacity=20_000)
 
+    B, K, graphed = opts.train_envs, opts.collect_steps, opts.graphed
+    mesh, comm = opts.mesh, opts.comm
+    if mesh is not None and comm is not None:
+        raise ValueError("a mesh of threads or a comm of processes, not both")
+    data = mesh.data if mesh is not None else (comm.size if comm else 1)
+    if B % data != 0:
+        raise ValueError(
+            f"train_envs={B} not divisible by data axis {data}")
+    lead = comm is None or comm.rank == 0
+
     os.makedirs(output_dir, exist_ok=True)
-    writer = MetricsWriter(output_dir)
+    writer = MetricsWriter(output_dir) if lead else _NoWriter()
     art = art or build(config, policy_name, base_seed=seed, device=device)
     policy, trainer, explorer = art.policy, art.trainer, art.explorer
     demo_explorer = art.demonstrator_explorer
 
     policy.init_params(torch.Generator().manual_seed(seed))
     trainer.update_target()
+    collectors: dict = {}
+    if mesh is not None or comm is not None:
+        trainer = ParallelTrainer(trainer, mesh=mesh, comm=comm)
+        collectors = {id(e): ParallelCollect(
+            e, K, sim.train_seed_offset, mesh=mesh, comm=comm)
+            for e in (explorer, demo_explorer)}
+        log.info("mesh: %s", mesh.shape if mesh is not None else
+                 {"data": comm.size, "model": 1, "processes": True})
+
+    def save(path: str) -> None:
+        if lead:
+            ckpt.save(path, trainer)
     gen = torch.Generator(device=device).manual_seed(seed)
     n_params = sum(p.numel() for p in trainer.params)
     log.info("policy %s: %d parameters", policy_name, n_params)
 
     buffer = rb.create(tc.capacity, sim.human_num, device=device)
-    B, K, graphed = opts.train_envs, opts.collect_steps, opts.graphed
     result: dict = {}
 
     def collect_and_update(expl: Explorer, carry, epsilon: float,
                            imitation: bool, draws=None):
-        carry, traj = expl.collect(carry, K, sim.train_seed_offset, epsilon,
-                                   draws, graphed)
+        if collectors:
+            carry, traj = collectors[id(expl)](carry, epsilon, draws,
+                                               graphed)
+        else:
+            carry, traj = expl.collect(carry, K, sim.train_seed_offset,
+                                       epsilon, draws, graphed)
         expl.update_memory(buffer, traj,
                            None if imitation else trainer.target.value,
                            imitation)
@@ -198,7 +249,7 @@ def train(config: Config, policy_name: str, output_dir: str,
                          "sp_loss": aux.predictor_loss}, prefix="il")
         result.update(il_sgd_steps=steps, il_value_loss=aux.value_loss,
                       il_sp_loss=aux.predictor_loss)
-        ckpt.save(il_ckpt, trainer)
+        save(il_ckpt)
 
         ev = evaluate(min(sim.val_size, opts.eval_envs))
         result["il_val_success"] = ev.success_rate
@@ -276,7 +327,7 @@ def train(config: Config, policy_name: str, output_dir: str,
             score = (ev.success_rate, ev.avg_return)
             if score > best_score:
                 best_score = score
-                ckpt.save(best_ckpt, trainer)
+                save(best_ckpt)
                 log.info("new best val success %.2f → %s", ev.success_rate,
                          best_ckpt)
             walls["val"] += time.perf_counter() - t0
@@ -286,10 +337,10 @@ def train(config: Config, policy_name: str, output_dir: str,
             prefix="rl")
 
         if episodes - last_ckpt_ep >= tc.checkpoint_interval:
-            ckpt.save(rl_ckpt, trainer)
+            save(rl_ckpt)
             last_ckpt_ep = episodes
 
-    ckpt.save(rl_ckpt, trainer)
+    save(rl_ckpt)
     result.update(rl_wall_s=time.perf_counter() - t_loop, rl_sgd_steps=it
                   * tc.train_batches, value_loss=float(aux.value_loss),
                   sp_loss=float(aux.predictor_loss),

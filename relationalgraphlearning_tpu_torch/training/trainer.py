@@ -145,12 +145,17 @@ class MPRLTrainer:
         return torch.func.functional_call(self.net, params or {}, args,
                                           kwargs)
 
+    def denominator(self, w: Tensor) -> Tensor:
+        """The losses' denominator: max(Σ valid, 1) over the batch (over
+        the global batch on a mesh, ``sharding.py``)."""
+        return torch.clamp(w.sum(), min=1.0)
+
     def loss_fn(self, batch: rb.Transition, update_sp, use_td: bool = False,
                 params: Optional[dict] = None) -> tuple[Tensor, LossAux]:
         """The loss of the nets on ``batch`` (``trainer.py:96-129``), with
         ``params`` in place of their parameters when given."""
         w = batch.valid
-        denom = torch.clamp(w.sum(), min=1.0)
+        denom = self.denominator(w)
         target = self.td_target(batch) if use_td else batch.value
         if self.policy.cfg.mprl.linear_state_predictor or self.freeze_sp:
             v = self._nets(params, batch.robot, batch.humans)
@@ -297,7 +302,7 @@ class VNRLTrainer(MPRLTrainer):
     def loss_fn(self, batch: rb.Transition, update_sp, use_td: bool = False,
                 params: Optional[dict] = None) -> tuple[Tensor, LossAux]:
         w = batch.valid
-        denom = torch.clamp(w.sum(), min=1.0)
+        denom = self.denominator(w)
         v = self._nets(params, batch.robot, batch.humans)
         value_loss = (w * (v - batch.value) ** 2).sum() / denom
         return value_loss, LossAux(value_loss,

@@ -1171,3 +1171,191 @@ def test_cuda_partitioned_rollout_matches_the_cpu(dev):
     torch.testing.assert_close(gsh.aid.cpu(), csh.aid, rtol=0, atol=0)
     torch.testing.assert_close(gsh.pos.cpu(), csh.pos, rtol=0, atol=1e-4)
     torch.testing.assert_close(gsh.vel.cpu(), csh.vel, rtol=0, atol=1e-4)
+
+
+# ------------------------------------------------ collectives in a capture
+def _axes_collectives(comm, x):
+    data, model = comm.axis("data"), comm.axis("model")
+    y = x * (comm.rank + 1)
+    return (data.psum(y), model.psum(y), data.all_gather(y),
+            model.all_gather(y, dim=-1), data.ppermute(y, 1))
+
+
+@pytest.mark.parametrize("data, model", [(4, 1), (2, 2), (4, 2)])
+def test_cuda_mesh_capture_replays_collectives_bit_for_bit(dev, data,
+                                                           model):
+    """``Mesh.capture``: every rank's collectives recorded into one CUDA
+    graph; a replay on new rows equals the eager run on them."""
+    from relationalgraphlearning_tpu_torch.parallel import comm as tcomm
+    mesh = tmesh.make_mesh(data, model, device=dev)
+    g = torch.Generator().manual_seed(0)
+    x0, x1 = (torch.randn(8 * data, 5, generator=g).to(dev)
+              for _ in range(2))
+    graph = mesh.capture(_axes_collectives, row_sharded=(x0,))
+    for x in (x0, x1):
+        got = graph(x)
+        want = mesh.run(_axes_collectives, row_sharded=(x,))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    one = tmesh.make_mesh(data, device=dev).capture(tcomm.collectives,
+                                                    row_sharded=(x0,))
+    got = one(x1)
+    want = tmesh.make_mesh(data, device=dev).run(tcomm.collectives,
+                                                 row_sharded=(x1,))
+    from torch.utils._pytree import tree_leaves
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_cuda_captured_halo_forward_holds_its_launches(dev):
+    """The D=4 block-halo forward captured as one graph: kernel #1 twice a
+    rank (two GCN layers) in the graph, the replay equal to the eager
+    run."""
+    states, cand, mbits, halo = _halo_problem()
+    gnet = torch.Generator().manual_seed(1)
+    model = TSparseValueNet(TGCN(), backend="block",
+                            generator=gnet).graph_model.to(dev).eval()
+    mesh = tmesh.make_mesh(data=4, device=dev)
+    args = tuple(t.to(dev) for t in (states, cand, mbits))
+    with torch.no_grad():
+        want = mesh.run(tgp.block_rgl_rank, replicated=(model, halo),
+                        row_sharded=args)
+        graph = mesh.capture(tgp.block_rgl_rank, replicated=(model, halo),
+                             row_sharded=args)
+        got = graph(*args)
+    assert graph.launches["fused_block_attention_packed_shared"] == 4 * 2
+    assert sum(graph.launches.values()) == 4 * 2
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cuda_partitioned_rollout_graphed_equals_eager(dev):
+    g = torch.Generator().manual_seed(0)
+    n = 600
+    pos = torch.rand(n, 2, generator=g) * 47.0 - 23.5
+    spec = tpb.BandSpec(D=4, n_cap=256, x0=-24.0, band_w=12.0, y0=-24.0,
+                        cell=3.0, grid_w=64, B=64, C=256, K=8, K_orca=6,
+                        mig_cap=32)
+    net = TSparseValueNet(TGCN(), backend="block",
+                          generator=torch.Generator().manual_seed(1))
+    net = net.to(dev).eval()
+    shards = tpb.init_crowd_shards(pos, torch.zeros(n, 2), -pos,
+                                   torch.full((n,), 0.3), torch.ones(n),
+                                   spec, device=dev)
+    mesh = tmesh.make_mesh(data=4, device=dev)
+    eager = tpb.partitioned_mega_rollout(mesh, spec, net, TORCAParams(), 8,
+                                         2)(shards)
+    run = tpb.partitioned_mega_rollout(mesh, spec, net, TORCAParams(), 8, 2,
+                                       graphed=True)
+    for _ in range(2):                    # the capture, then a replay
+        sh, diag = run(shards)
+        for a, b in zip(sh, eager[0]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for k in diag:
+            assert float(diag[k]) == float(eager[1][k]), k
+    assert run.graph.launches["fused_block_attention_packed_shared"] == \
+        4 * 2 * 8
+
+
+def _dp_config():
+    from relationalgraphlearning_tpu_torch.configs.base import (
+        Config, EnvConfig, MPRLConfig, PolicyConfig)
+    return Config(env=EnvConfig(human_policy="linear"),
+                  policy=PolicyConfig(mprl=MPRLConfig(
+                      planning_depth=1, do_action_clip=False)))
+
+
+@pytest.mark.parametrize("data, model", [(2, 1), (2, 2), (4, 2)])
+def test_cuda_parallel_step_graphed_equals_eager(dev, data, model):
+    """The dp/tp step of every rank as one CUDA graph against the eager
+    ranks, from the same state and minibatches (3 Adam steps with TD
+    targets): the gathered state bit for bit, every rank of an axis the
+    same bits; and near the one-device step (value loss rel 1e-4)."""
+    from relationalgraphlearning_tpu_torch.parallel import sharding
+    config = _dp_config()
+    base = ttl.build(config, "model_predictive_rl", 0, dev)
+    base.policy.init_params(torch.Generator().manual_seed(0))
+    base.trainer.update_target()
+    state = base.trainer.state_dict()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    carry = base.explorer.init_carry(8, 0)
+    _, traj = base.explorer.collect(carry, 8, 0, 0.0, graphed=False)
+    buffer = trb.create(256, 5, device=dev)
+    base.explorer.update_memory(buffer, traj, None, True)
+    idx = trb.sample_indices(buffer, gen, (3, 30))
+    runs = {}
+    for mode in ("eager", "graphed"):
+        art = ttl.build(config, "model_predictive_rl", 0, dev)
+        art.trainer.load_state(state)
+        par = sharding.ParallelTrainer(art.trainer,
+                                       tmesh.make_mesh(data, model, dev))
+        aux = par.optimize(buffer, idx, use_td=True,
+                           graphed=mode == "graphed")
+        runs[mode] = (par, aux)
+    (pe, ae), (pg, ag) = runs["eager"], runs["graphed"]
+    assert torch.equal(torch.stack(ae), torch.stack(ag))
+    se, sg = pe.state_dict(), pg.state_dict()
+    for part in ("params", "target_params"):
+        for k in se[part]:
+            assert torch.equal(se[part][k], sg[part][k]), (part, k)
+    for a, b in zip(se["optimizer_state"], sg["optimizer_state"]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for r, rt in enumerate(pg.ranks):
+        ref = pg.ranks[r % model]
+        for p, q in zip(rt.params, ref.params):
+            assert torch.equal(p, q), r
+    base.trainer.load_state(state)
+    one = base.trainer.optimize(buffer, idx, use_td=True, graphed=False)
+    assert float(ag.value_loss) == pytest.approx(float(one.value_loss),
+                                                 rel=1e-4)
+
+
+def test_cuda_parallel_collect_equals_one_device(dev):
+    from relationalgraphlearning_tpu_torch.parallel import sharding
+    art = ttl.build(_dp_config(), "model_predictive_rl", 0, dev)
+    art.policy.init_params(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    carry = art.explorer.init_carry(8, 0)
+    draws = art.explorer.draws(gen, 6, 8)
+    want = art.explorer.collect(carry, 6, 0, 0.5, draws, graphed=True)
+    collect = sharding.make_parallel_collect(
+        art.explorer, tmesh.make_mesh(4, device=dev), 6, 0)
+    for _ in range(2):                    # the capture, then a replay
+        got = collect(carry, 0.5, draws, graphed=True)
+        for part_g, part_w in zip(got, want):
+            for a, b in zip(part_g, part_w):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_cuda_parallel_train_step_on_a_batch_graphed_equals_eager(dev):
+    """``make_parallel_train_step``'s step on a given batch (30 rows, which
+    4 does not divide) at (4, 2): captured at its first call and replayed
+    at its second, against the eager ranks from the same state."""
+    from relationalgraphlearning_tpu_torch.parallel import sharding
+    config = _dp_config()
+    base = ttl.build(config, "model_predictive_rl", 0, dev)
+    base.policy.init_params(torch.Generator().manual_seed(0))
+    base.trainer.update_target()
+    state = base.trainer.state_dict()
+    g = torch.Generator().manual_seed(2)
+    batches = [trb.Transition(
+        robot=torch.randn(30, 9, generator=g),
+        humans=torch.randn(30, 5, 5, generator=g),
+        value=torch.randn(30, generator=g), reward=torch.zeros(30),
+        next_robot=torch.randn(30, 9, generator=g),
+        next_humans=torch.randn(30, 5, 5, generator=g),
+        valid=(torch.rand(30, generator=g) < 0.8).float(),
+        terminal=torch.zeros(30)) for _ in range(2)]
+    batches = [trb.Transition(*(t.to(dev) for t in b)) for b in batches]
+    steps = {}
+    for mode in ("eager", "graphed"):
+        art = ttl.build(config, "model_predictive_rl", 0, dev)
+        art.trainer.load_state(state)
+        steps[mode] = sharding.make_parallel_train_step(
+            art.trainer, tmesh.make_mesh(4, 2, dev))
+        steps[mode].auxes = [steps[mode](b, 1.0, graphed=mode == "graphed")
+                             for b in batches]
+    for a, b in zip(steps["eager"].auxes, steps["graphed"].auxes):
+        assert torch.equal(torch.stack(a), torch.stack(b))
+    for p, q in zip(steps["eager"].params, steps["graphed"].params):
+        assert torch.equal(p, q)

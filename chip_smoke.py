@@ -79,7 +79,12 @@ Phases, each of which exits non-zero on failure:
    within 0.20 s of the committed ``eval_test*.json``, agree with the JAX
    package's per-case outcomes (``checkpoints/<run>_test_reference.npz``)
    in at least 485 of 500 cases, and its graphed run must equal its eager
-   run bit for bit; none of kernels #1-#7 may launch.
+   run bit for bit. Then the unicycle failure breakdown
+   (``tools/diag_unicycle.py`` of the port) of ``results/mp_unicycle``
+   over the 500 cases, graphed and eager (bit for bit), held to its
+   ``eval_test.json`` and the JAX per-case outcomes by the same limits,
+   its summary printed beside the committed ``diagnosis.json``. None of
+   kernels #1-#7 may launch.
 9. MP-RGL training (slice 8) at the full width of
    ``configs/icra_benchmark/mp_separate.py``: one captured SGD step held to
    one eager step (and 8 to 8) from the same state and minibatch indices,
@@ -106,12 +111,18 @@ Phases, each of which exits non-zero on failure:
     within 0.20 s of the committed ``eval_test*.json``, at least 485 of 500
     outcomes equal to the JAX package's per-case records, graphed == eager
     bit for bit. ``sarl`` with the env-queried lookahead (``query_env``)
-    runs graphed and eager too, held to each other bit for bit. Then the
-    value-only trainer (``VNRLTrainer``) on ``sarl``: one and 8 captured
-    SGD steps against eager ones (SGD and Adam), 64 captured collection
-    steps against eager ones (the demonstrator, and SARL at ε = 0.5), and
-    ``train_loop.train`` in its debug shrink graphed and eager, with phase
-    9's checks. None of kernels #1-#7 may launch.
+    runs graphed and eager too, held to each other bit for bit. The five
+    baselines the port trained from scratch on the card
+    (``relationalgraphlearning_tpu_torch/results/<row>_s0``, by
+    ``tools/reproduce_quality.py``) run the same way, held to their
+    committed ``eval_test.json`` with the same limits and graphed == eager.
+    Then the value-only trainer (``VNRLTrainer``) on each learned baseline
+    (``sarl``, ``sarl_om``, ``lstm_rl``, ``cadrl`` at one human, ``rgl``):
+    one and 8 captured SGD steps against eager ones (SGD and Adam), 64
+    captured collection steps against eager ones (the demonstrator, and the
+    baseline at ε = 0.5), and ``train_loop.train`` in its debug shrink
+    graphed (and, for ``sarl``, eager), with phase 9's checks. None of
+    kernels #1-#7 may launch.
 11. The node-partitioned paths of ``parallel/`` on D ranks run as threads
     on the one card (``LocalComm``, D = 1, 2, 4, 8), the reference's
     ``bench_scaling.py`` protocol at full width (``GCNConfig``, the value
@@ -173,6 +184,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -202,6 +214,7 @@ from relationalgraphlearning_tpu_torch.parallel.comm import run_local
 from relationalgraphlearning_tpu_torch.parallel.mesh import (
     make_mesh, split_rows)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as ak
+from relationalgraphlearning_tpu_torch.tools import diag_unicycle as diag
 from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
 from relationalgraphlearning_tpu_torch.training import train_loop
@@ -286,6 +299,15 @@ BASELINE_RUNS = (
     ("orca", "orca", "orca", {}, "eval_test.json"),
     ("orca_th10", "orca_th10", "orca", {"orca_time_horizon": 10.0},
      "eval_test_th10.json"))
+# Phase 10's training checks: (model of results/<model>/config.py, policy).
+# The eager debug run (a minute each) runs for sarl only; the captured SGD
+# steps and collection are held to eager ones for every baseline.
+BASELINE_TRAIN = (("sarl", "sarl"), ("sarl_om", "sarl"),
+                  ("lstm_rl", "lstm_rl"), ("cadrl", "cadrl"), ("rgl", "rgl"))
+# Phase 10: where the runs of the learned baselines that the port trained
+# from scratch on the card lie (tools/reproduce_quality.py, seed 0:
+# <row>_s0), each held to its committed eval_test.json with MPRL_BOUNDS.
+PORT_RESULTS = ROOT / "relationalgraphlearning_tpu_torch" / "results"
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
 # the SXM part is the default.
@@ -1295,26 +1317,30 @@ def harness_phase(dev, report):
 
 # ------------------------------------------------------------- --profile
 # ------------------------------------------------------------------ phase 8
-def eval_setup(model, policy, overrides, dev):
-    """(config, env, policy, explorer) of ``results/<model>`` with the CLI's
-    ``overrides`` (``human_num``, the planner's, ``orca_time_horizon``), as
-    the port's CLI builds them: a trained policy with its weights."""
+def eval_setup(model, policy, overrides, dev, results=ROOT / "results"):
+    """(config, env, policy, explorer) of ``<results>/<model>`` with the
+    CLI's ``overrides`` (``human_num``, the planner's,
+    ``orca_time_horizon``), as the port's CLI builds them: a trained policy
+    with its weights."""
     over = dict(overrides)
     kwargs = {}
     if "orca_time_horizon" in over:
         kwargs["time_horizon"] = over.pop("orca_time_horizon")
-    model_dir = str(ROOT / "results" / model)
+    model_dir = str(results / model)
     config, _ = eval_cli.configure(model_dir, **over)
     trained = eval_cli.policy_factory[policy].trainable
     weights = eval_cli.weights_of(model_dir) if trained else None
     return (config, *eval_cli.build(config, policy, weights, dev, kwargs))
 
 
-def eval_run(run, model, policy_name, overrides, record, dev, order):
+def eval_run(run, model, policy_name, overrides, record, dev, order,
+             results=ROOT / "results", per_case=True):
     """One evaluated configuration's 500 cases, eager and graphed in
-    ``order``, and its checks. Returns its report."""
+    ``order``, and its checks against ``<results>/<model>/<record>`` and,
+    with ``per_case``, the JAX package's per-case records. Returns its
+    report."""
     config, env, policy, explorer = eval_setup(model, policy_name, overrides,
-                                               dev)
+                                               dev, results)
     sim = config.env.sim
     offset, cases = sim.test_seed_offset, range(sim.test_size)
     torch.cuda.synchronize()
@@ -1342,14 +1368,18 @@ def eval_run(run, model, policy_name, overrides, record, dev, order):
         raise RuntimeError(f"{run}: robot states {tuple(eager.robot.shape)}")
     stats = {k: float(v) for k, v in
              zip(explorer.stats(eager)._fields, explorer.stats(eager))}
-    committed = json.loads((ROOT / "results" / model / record).read_text())
-    ref = checkpoints.load_test_reference(run)
+    committed = json.loads((results / model / record).read_text())
     outcome = eager.case_outcome.cpu().numpy()
-    agree = int((outcome == ref["outcome"]).sum())
-    both_succeed = (outcome == T.OUTCOME_REACH_GOAL) & (
-        ref["outcome"] == T.OUTCOME_REACH_GOAL)
-    same_steps = int((eager.step.cpu().numpy()[both_succeed]
-                      == ref["steps"][both_succeed]).sum())
+    if per_case:
+        ref = checkpoints.load_test_reference(run)
+        agree = int((outcome == ref["outcome"]).sum())
+        both_succeed = (outcome == T.OUTCOME_REACH_GOAL) & (
+            ref["outcome"] == T.OUTCOME_REACH_GOAL)
+        same_steps = int((eager.step.cpu().numpy()[both_succeed]
+                          == ref["steps"][both_succeed]).sum())
+    else:  # a run of the port: no JAX records of it
+        agree = same_steps = None
+        both_succeed = outcome == T.OUTCOME_REACH_GOAL
     delta = dict(success_rate=stats["success_rate"]
                  - committed["success_rate"],
                  collision_rate=stats["collision_rate"]
@@ -1384,9 +1414,11 @@ def eval_run(run, model, policy_name, overrides, record, dev, order):
           f"danger {stats['danger_frequency']:.4f} "
           f"[{committed['danger_frequency']:.4f}], min dist "
           f"{stats['avg_min_dist']:.4f} [{committed['avg_min_dist']:.4f}]; "
-          f"outcomes equal to the JAX package's in {agree}/{sim.test_size}, "
-          f"same steps in {same_steps}/{int(both_succeed.sum())} shared "
-          f"successes; capture {capture_s:.3f} s, graphed "
+          + (f"outcomes equal to the JAX package's in {agree}/"
+             f"{sim.test_size}, same steps in {same_steps}/"
+             f"{int(both_succeed.sum())} shared successes; " if per_case
+             else "") +
+          f"capture {capture_s:.3f} s, graphed "
           f"{walls['graphed']:.3f} s ({out['env_steps_per_s']:.0f} env-steps"
           f"/s), eager {walls['eager']:.3f} s "
           f"({out['env_steps_per_s_eager']:.0f}), "
@@ -1395,11 +1427,59 @@ def eval_run(run, model, policy_name, overrides, record, dev, order):
           flush=True)
     misses = [f"|d {k}| = {abs(v):.4f} > {MPRL_BOUNDS[k]}"
               for k, v in delta.items() if abs(v) > MPRL_BOUNDS[k]]
-    if agree < MPRL_MIN_AGREE:
+    if per_case and agree < MPRL_MIN_AGREE:
         misses.append(f"{agree} outcomes equal < {MPRL_MIN_AGREE}")
     if misses:
         raise RuntimeError(f"{run}: {'; '.join(misses)}")
     return out
+
+
+def diag_check(dev, model="mp_unicycle"):
+    """The port's unicycle failure breakdown (``tools/diag_unicycle.py``)
+    of ``results/<model>`` over the 500 test cases, graphed and eager (bit
+    for bit), held to the committed ``eval_test.json`` with MPRL_BOUNDS and
+    to the JAX package's per-case outcomes in MPRL_MIN_AGREE cases; its
+    summary printed beside the committed ``diagnosis.json`` -> the report.
+    """
+    model_dir = ROOT / "results" / model
+    config, explorer = diag.setup(str(model_dir), dev)
+    cases = config.env.sim.test_size
+    recs, walls = {}, {}
+    for mode in ("graphed", "eager"):  # the first call captures
+        walls[mode] = _timed(lambda: recs.update({mode: diag.rollout(
+            explorer, cases, graphed=mode == "graphed")}))
+    for k, v in recs["eager"].items():
+        if not np.array_equal(recs["graphed"][k], v):
+            raise RuntimeError(f"diag {model}: graphed {k} != eager")
+    rec = recs["graphed"]
+    summary, rows = diag.diagnose(rec, config, cases)
+    committed = json.loads((model_dir / "diagnosis.json").read_text())
+    record = json.loads((model_dir / "eval_test.json").read_text())
+    outcome = np.where(rec["dones"][-1], rec["outcome"], T.OUTCOME_TIMEOUT)
+    agree = int((outcome == checkpoints.load_test_reference(model)[
+        "outcome"]).sum())
+    delta = dict(success_rate=summary["success"] / cases
+                 - record["success_rate"],
+                 collision_rate=summary["collision"] / cases
+                 - record["collision_rate"])
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"diagnosis_{model}.json").write_text(json.dumps(
+        {"summary": summary, "collisions": rows}, indent=1))
+    print(f"diag {model}: {json.dumps(summary)}\n  committed "
+          f"{json.dumps(committed['summary'])}\n  outcomes equal to the JAX "
+          f"package's in {agree}/{cases}; graphed (with its capture) "
+          f"{walls['graphed']:.2f} s, eager {walls['eager']:.2f} s, graphed "
+          f"== eager", flush=True)
+    misses = [f"|d {k}| = {abs(v):.4f} > {MPRL_BOUNDS[k]}"
+              for k, v in delta.items() if abs(v) > MPRL_BOUNDS[k]]
+    if agree < MPRL_MIN_AGREE:
+        misses.append(f"{agree} outcomes equal < {MPRL_MIN_AGREE}")
+    if misses:
+        raise RuntimeError(f"diag {model}: {'; '.join(misses)}")
+    return dict(model=model, summary=summary,
+                committed=committed["summary"], outcome_agree=agree,
+                delta=delta, wall_s_with_capture=walls["graphed"],
+                wall_s_eager=walls["eager"])
 
 
 def mprl_phase(dev, report):
@@ -1421,10 +1501,12 @@ def mprl_phase(dev, report):
             order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
             runs.append(eval_run(run, model, "model_predictive_rl",
                                  overrides, record, dev, order))
+        diagnosis = diag_check(dev)
     launches = captured.launch_counts()
     if any(launches.values()):
         raise RuntimeError(f"the MP-RGL path launched kernels: {launches}")
-    report["mprl"] = dict(precision=precision, runs=runs, launches=launches)
+    report["mprl"] = dict(precision=precision, runs=runs,
+                          diagnosis=diagnosis, launches=launches)
     return launches
 
 
@@ -1819,10 +1901,10 @@ def debug_train(dev, mode, config_path, policy, label):
     return row
 
 
-def train_checks(dev, config_path, policy, label) -> dict:
+def train_checks(dev, config_path, policy, label, eager_debug=True) -> dict:
     """Phase 9's checks of ``policy``'s training on the config at
     ``config_path``: captured SGD steps and collection against eager, and
-    the debug run graphed and eager -> their report."""
+    the debug run graphed and (``eager_debug``) eager -> their report."""
     out = {}
     config = load_config_module(str(config_path))
     art = train_loop.build(config, policy, 0, dev)
@@ -1841,15 +1923,16 @@ def train_checks(dev, config_path, policy, label) -> dict:
         art, gen, offset, {"model_predictive_rl": "mprl"}.get(policy, policy),
         label)
     runs = [debug_train(dev, mode, config_path, policy, label)
-            for mode in ("graphed", "eager")]
-    same = runs[0]["result"]["success_rate"] == runs[1]["result"][
-        "success_rate"] and runs[0]["result"]["value_loss"] == runs[1][
-        "result"]["value_loss"]
+            for mode in ("graphed", "eager")[:1 + eager_debug]]
     out["debug_runs"] = runs
-    out["debug_graphed_equals_eager"] = same
-    print(f"{label} debug runs: graphed {runs[0]['wall_s']:.1f} s, eager "
-          f"{runs[1]['wall_s']:.1f} s; same final val success and loss: "
-          f"{same}", flush=True)
+    if eager_debug:
+        same = runs[0]["result"]["success_rate"] == runs[1]["result"][
+            "success_rate"] and runs[0]["result"]["value_loss"] == runs[1][
+            "result"]["value_loss"]
+        out["debug_graphed_equals_eager"] = same
+        print(f"{label} debug runs: graphed {runs[0]['wall_s']:.1f} s, "
+              f"eager {runs[1]['wall_s']:.1f} s; same final val success "
+              f"and loss: {same}", flush=True)
     return out
 
 
@@ -1894,26 +1977,40 @@ def query_env_check(dev):
 
 
 def baselines_phase(dev, report):
-    """Slice 9: the seven evaluated baseline rows, each eager and graphed in
-    turns, the env-queried lookahead, and ``sarl``'s value-only training.
-    Kernel counts are zeroed before the phase and read after it: this path
-    launches none of #1-#7."""
+    """Slices 9 and 12: the seven evaluated baseline rows and the five the
+    port trained from scratch, each eager and graphed in turns, the
+    env-queried lookahead, and the value-only training of every learned
+    baseline. Kernel counts are zeroed before the phase and read after it:
+    this path launches none of #1-#7."""
+    t0 = time.perf_counter()
     captured.reset_launch_counts()
-    runs = []
+    runs, port_runs = [], []
     with torch.no_grad():
         for i, (run, model, policy, overrides, record) in enumerate(
                 BASELINE_RUNS):
             order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
             runs.append(eval_run(run, model, policy, overrides, record, dev,
                                  order))
+        learned = dict(BASELINE_TRAIN)
+        for i, (_, model, policy, overrides, _) in enumerate(
+                r for r in BASELINE_RUNS if r[1] in learned):
+            order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
+            port_runs.append(eval_run(
+                f"{model}_s0", f"{model}_s0", policy, overrides,
+                "eval_test.json", dev, order, results=PORT_RESULTS,
+                per_case=False))
         query_env = query_env_check(dev)
-    train = train_checks(dev, ROOT / "results" / "sarl" / "config.py",
-                         "sarl", "sarl")
+    train = {model: train_checks(dev, ROOT / "results" / model / "config.py",
+                                 policy, model, eager_debug=model == "sarl")
+             for model, policy in BASELINE_TRAIN}
     launches = captured.launch_counts()
     if any(launches.values()):
         raise RuntimeError(f"the baselines' path launched kernels: {launches}")
-    report["baselines"] = dict(runs=runs, query_env=query_env, train=train,
-                               launches=launches)
+    seconds = time.perf_counter() - t0
+    report["baselines"] = dict(runs=runs, port_trained=port_runs,
+                               query_env=query_env, train=train,
+                               launches=launches, seconds=seconds)
+    print(f"phase 10: {seconds:.1f} s", flush=True)
 
 
 # ----------------------------------------------------------------- phase 11

@@ -1,0 +1,235 @@
+"""Regenerate the navigation-quality table with the port, from scratch
+(counterpart of ``reproduce_quality.py`` at the repository's root).
+
+Trains every row of the reference's table with a fixed seed (imitation +
+RL, the committed recipe of each row), evaluates each on the 500 seeded
+test cases, and writes a table that puts each row's record beside the
+reference's committed ``results/<row>/<record>`` with the gate's verdict:
+a row passes when its test success lies within ``GATE`` of the reference's.
+
+    python -m relationalgraphlearning_tpu_torch.tools.reproduce_quality
+    python -m relationalgraphlearning_tpu_torch.tools.reproduce_quality \\
+        --only sarl,sarl_om,lstm_rl,cadrl,rgl
+    python -m relationalgraphlearning_tpu_torch.tools.reproduce_quality \\
+        --skip_existing                     # reuse finished runs
+    python -m relationalgraphlearning_tpu_torch.tools.reproduce_quality \\
+        --table_only                        # just re-emit the table
+
+Each run shells out to the port's train and test CLIs on ``--device``
+(the card unless asked), so a crash in one run cannot take down the
+queue; every run keeps its own output directory under ``--data_dir`` and
+its commands' output in ``<data_dir>/<name>.reproduce.log``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# The reference's rows (``reproduce_quality.py:38-85``), unchanged. Every
+# row is evaluated on the same 5-human 500-case protocol; CADRL trains with
+# one human and tests with --human_num 5. ``train_args`` carry each
+# committed run's recipe and come after the fixed flags (argparse takes the
+# last occurrence); ``record`` names the evaluation record when an
+# override gives it a suffix.
+RUNS = [
+    {"name": "orca", "policy": "orca"},
+    {"name": "orca_th10", "policy": "orca",
+     "test_args": ["--orca_time_horizon", "10"],
+     "record": "eval_test_th10.json"},
+    {"name": "mprl", "policy": "model_predictive_rl",
+     "config": "configs/icra_benchmark/mp_separate.py"},
+    {"name": "rgl", "policy": "rgl", "config": "configs/icra_benchmark/rgl.py"},
+    {"name": "sarl", "policy": "sarl",
+     "config": "configs/icra_benchmark/sarl.py"},
+    {"name": "lstm_rl", "policy": "lstm_rl",
+     "config": "configs/icra_benchmark/lstm_rl.py"},
+    {"name": "cadrl", "policy": "cadrl",
+     "config": "configs/icra_benchmark/cadrl.py",
+     "test_args": ["--human_num", "5"]},
+    {"name": "mp_unicycle", "policy": "model_predictive_rl",
+     "config": "configs/icra_benchmark/mp_unicycle.py"},
+    {"name": "sarl_om", "policy": "sarl",
+     "config": "configs/icra_benchmark/sarl_om.py"},
+    {"name": "mp_w4", "policy": "model_predictive_rl",
+     "config": "configs/icra_benchmark/mp_w4.py"},
+    {"name": "mprl_fine", "policy": "model_predictive_rl",
+     "config": "configs/icra_benchmark/mp_w4.py",
+     "train_args": ["--evaluation_interval", "250", "--randomseed", "2"]},
+    {"name": "mprl_band", "policy": "model_predictive_rl",
+     "config": "configs/icra_benchmark/mp_w4.py",
+     "train_args": ["--evaluation_interval", "250", "--randomseed", "3",
+                    "--rl_learning_rate", "5e-4"]},
+    {"name": "mp_default_r5", "policy": "model_predictive_rl",
+     "config": "configs/icra_benchmark/mp_separate.py",
+     "train_args": ["--evaluation_interval", "250", "--randomseed", "4",
+                    "--rl_learning_rate", "5e-4"]},
+]
+
+# Rows with a run of the port committed under the package's ``results/``
+# (trained with this tool at seed 0). When ``<data_dir>/<name>/<record>``
+# is absent the table reads it, so a partial regeneration never stands in
+# for a committed row.
+COMMITTED_FALLBACK = {
+    name: f"relationalgraphlearning_tpu_torch/results/{name}_s0"
+    for name in ("sarl", "sarl_om", "lstm_rl", "cadrl", "rgl")}
+
+# The gate on test success, against the reference's committed record: two
+# standard deviations of the reference's own seed spread under the
+# cadence-500 selection recipe every trained row of this tool uses
+# (results/mprl_band_seeds/summary.json: 0.963 +- 0.028 over 4 seeds, the
+# only multi-seed record of that recipe; each baseline record is one seed).
+GATE = 0.06
+
+
+def run(cmd: list[str], log_path: str) -> int:
+    print(f"$ {' '.join(cmd)}  (log: {log_path})", flush=True)
+    with open(log_path, "a") as f:
+        return subprocess.call(cmd, stdout=f, stderr=subprocess.STDOUT,
+                               cwd=HERE)
+
+
+def train_command(r: dict, outdir: str, seed: int, device: str) -> list:
+    """The port's ``cli.train`` with the reference's fixed flags, then the
+    row's own."""
+    return ([sys.executable, "-m",
+             "relationalgraphlearning_tpu_torch.cli.train",
+             "--policy", r["policy"], "--config", r["config"],
+             "--output_dir", outdir, "--overwrite",
+             "--evaluation_interval", "500", "--val_size", "200",
+             "--randomseed", str(seed), "--device", device]
+            + r.get("train_args", []))
+
+
+def test_command(r: dict, outdir: str, device: str) -> list:
+    """The port's ``cli.test`` on the run's directory; its record goes into
+    the directory under the reference's name."""
+    return ([sys.executable, "-m",
+             "relationalgraphlearning_tpu_torch.cli.test",
+             "--policy", r["policy"], "--model_dir", outdir,
+             "--phase", "test", "--device", device, "--out", outdir]
+            + r.get("test_args", []))
+
+
+def _load(path: str):
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _cells(rec) -> str:
+    if rec is None:
+        return "— (missing)"
+    return (f"{rec['success_rate']:.3f} / {rec['collision_rate']:.3f} / "
+            f"{rec['timeout_rate']:.3f} / {rec['nav_time']:.2f} s")
+
+
+def table(runs: list, data_dir: str) -> tuple[str, dict]:
+    """The markdown table and its JSON: each row's record (``data_dir``,
+    else the committed fallback), the reference's, and the gate."""
+    lines = [
+        f"| Row | Port: success / collision / timeout / nav time | "
+        f"Reference: success / collision / timeout / nav time | "
+        f"Δ success | Gate (±{GATE}) | Port record |",
+        "|---|---|---|---|---|---|"]
+    out = {}
+    for r in runs:
+        name = r["name"]
+        record = r.get("record", "eval_test.json")
+        path = os.path.join(data_dir, name, record)
+        if not os.path.exists(os.path.join(HERE, path)) \
+                and name in COMMITTED_FALLBACK:
+            path = os.path.join(COMMITTED_FALLBACK[name], record)
+        ref_path = os.path.join("results", name, record)
+        port = _load(os.path.join(HERE, path))
+        ref = _load(os.path.join(HERE, ref_path))
+        delta = verdict = None
+        if port is not None and ref is not None:
+            delta = port["success_rate"] - ref["success_rate"]
+            # a float32 rate is k/500 off by an ulp: compare in cases
+            verdict = "pass" if abs(delta) <= GATE + 1e-6 else "miss"
+        lines.append(
+            f"| {name} | {_cells(port)} | {_cells(ref)} | "
+            + ("—" if delta is None else f"{delta:+.3f}")
+            + f" | {verdict or '—'} | "
+            + (f"`{path}`" if port is not None else "—") + " |")
+        out[name] = dict(port=port, port_path=path if port else None,
+                         reference=ref, reference_path=ref_path,
+                         delta_success=delta, gate=verdict)
+    return "\n".join(lines), out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--only", default=None,
+                   help="comma-separated run names to include")
+    p.add_argument("--skip_existing", action="store_true",
+                   help="skip runs whose evaluation record already exists")
+    p.add_argument("--table_only", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_dir", default=os.path.join("data", "torch"))
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the runs; the card unless asked "
+                        "(cpu)")
+    args = p.parse_args(argv)
+
+    only = set(args.only.split(",")) if args.only else None
+    if only is not None and only - {r["name"] for r in RUNS}:
+        p.error(f"unknown runs {sorted(only - {r['name'] for r in RUNS})}")
+    runs = [r for r in RUNS if only is None or r["name"] in only]
+    os.makedirs(os.path.join(HERE, args.data_dir), exist_ok=True)
+
+    if not args.table_only:
+        for r in runs:
+            name = r["name"]
+            record = r.get("record", "eval_test.json")
+            outdir = os.path.join(args.data_dir, name)
+            if args.skip_existing and os.path.exists(
+                    os.path.join(HERE, outdir, record)):
+                print(f"[{name}] {record} exists — skipping", flush=True)
+                continue
+            fb = COMMITTED_FALLBACK.get(name)
+            if (args.skip_existing and fb is not None
+                    and os.path.exists(os.path.join(HERE, fb, record))):
+                print(f"[{name}] using committed {fb} — skipping retrain",
+                      flush=True)
+                continue
+            os.makedirs(os.path.join(HERE, outdir), exist_ok=True)
+            # beside the run's directory: --overwrite clears the directory,
+            # and with it a log kept inside (the reference loses its
+            # training's output so)
+            log = os.path.join(HERE, args.data_dir, f"{name}.reproduce.log")
+            t0 = time.time()
+            if "config" in r:  # no config: a policy without parameters
+                rc = run(train_command(r, outdir, args.seed, args.device),
+                         log)
+                if rc != 0:
+                    print(f"[{name}] TRAIN FAILED rc={rc} — see {log}",
+                          flush=True)
+                    continue
+            rc = run(test_command(r, outdir, args.device), log)
+            status = "ok" if rc == 0 else f"EVAL FAILED rc={rc}"
+            print(f"[{name}] {status} ({time.time() - t0:.0f}s)", flush=True)
+
+    text, rows = table(runs, args.data_dir)
+    print(text, flush=True)
+    out = os.path.join(HERE, args.data_dir, "quality_table.md")
+    with open(out, "w") as f:
+        f.write(text + "\n")
+    with open(os.path.join(HERE, args.data_dir, "quality_table.json"),
+              "w") as f:
+        json.dump(rows, f, indent=1)
+    print(f"wrote {out}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

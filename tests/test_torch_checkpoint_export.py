@@ -19,9 +19,11 @@ CLI does (``training/train_loop.build``, ``trainer.init``,
   of a successful case (-1 otherwise) and the discounted return of each of
   the 500 test cases (``--runs`` picks a subset). The MP-RGL runs' come
   from the JAX package's ``Explorer.run_cases`` called on one case at a
-  time (one jit, 500 calls); the baselines' from one program over all 500
-  cases, ``run_cases``'s own scan with its final carry kept, which is the
-  program whose reduction the committed record is: its per-case results
+  time (one jit, 500 calls); the baselines' and ``mp_unicycle``'s from one
+  program over all 500 cases, ``run_cases``'s own scan with its final
+  carry kept (for ``mp_unicycle`` the program ``tools/diag_unicycle.py``
+  runs), which is the program whose reduction the committed record is: its
+  per-case results
   add up to that record to the last digit, while one case a call flips 2
   of ``orca_th10``'s 500 outcomes (ORCA's float32 LP near a tie). A run
   applies the JAX CLI's overrides (``--human_num``, the planner's,
@@ -54,6 +56,7 @@ CKPT_DIR = ROOT / "relationalgraphlearning_tpu_torch" / "checkpoints"
 MODELS = {
     "mprl_td": ("model_predictive_rl", 33_506),
     "mp_unicycle_anneal": ("model_predictive_rl", 33_506),
+    "mp_unicycle": ("model_predictive_rl", 33_506),
     "cadrl": ("cadrl", 27_401),
     "sarl": ("sarl", 96_502),
     "sarl_om": ("sarl", 103_702),
@@ -71,6 +74,8 @@ RUNS = {
                       "eval_test_d2_w4.json"),
     "mp_unicycle_anneal": ("mp_unicycle_anneal", "model_predictive_rl", {},
                            "eval_test.json"),
+    "mp_unicycle": ("mp_unicycle", "model_predictive_rl", {},
+                    "eval_test.json"),
     "cadrl": ("cadrl", "cadrl", {"human_num": 5}, "eval_test.json"),
     "sarl": ("sarl", "sarl", {}, "eval_test.json"),
     "sarl_om": ("sarl_om", "sarl", {}, "eval_test.json"),

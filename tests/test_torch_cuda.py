@@ -9,8 +9,11 @@ cases against the JAX package's per-case records; MP-RGL training
 bit for bit, and a ``debug`` train on the card); and the one-step
 baselines (CADRL, SARL, SARL with occupancy maps, LSTM-RL, the model-free
 RGL): their action values on the card against the CPU, their captured
-rollouts (with the env-queried lookahead too) against eager ones, and
-SARL's value-only training step and collection captured against eager; and
+rollouts (with the env-queried lookahead too) against eager ones, each
+learned baseline's value-only training step and collection captured
+against eager, the baselines the port trained from scratch replayed
+against eager, and the unicycle breakdown's rollout graphed against eager;
+and
 the partitioned paths on 4 ranks run as threads on the card (kernel #1
 through ``partitioned_block_rgl``, #2 through ``block_halo_attention`` with
 a value table, the 600-agent partitioned rollout) against the same ranks on
@@ -1024,28 +1027,31 @@ def test_cuda_baseline_captured_rollout_replays_eager(dev, model, query_env):
         assert (eager.case_outcome.cpu().numpy() != ref).sum() <= 1
 
 
-def _sarl_artifacts(dev, seed=0):
-    config = load_config_module(str(ROOT / "results" / "sarl" / "config.py"))
-    art = ttl.build(config, "sarl", seed, dev)
+def _sarl_artifacts(dev, seed=0, model="sarl"):
+    config = load_config_module(str(ROOT / "results" / model / "config.py"))
+    art = ttl.build(config, BASELINES[model], seed, dev)
     art.policy.init_params(torch.Generator().manual_seed(seed))
     art.trainer.update_target()
     return config, art
 
 
+@pytest.mark.parametrize("model", list(BASELINES))
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
-def test_cuda_vnrl_captured_sgd_step_replays_eager(dev, optimizer):
-    """SARL's value-only step (``VNRLTrainer``): 1 and then 5 captured SGD
-    steps equal as many eager ones bit for bit."""
-    config, art = _sarl_artifacts(dev)
+def test_cuda_vnrl_captured_sgd_step_replays_eager(dev, optimizer, model):
+    """Each learned baseline's value-only step (``VNRLTrainer``; CADRL at
+    its one human): 1 and then 5 captured SGD steps equal as many eager
+    ones bit for bit."""
+    config, art = _sarl_artifacts(dev, model=model)
     trainer = art.trainer
     trainer.set_learning_rate(0.01, optimizer)
-    buf = trb.create(4096, config.env.sim.human_num, device=dev)
+    h = config.env.sim.human_num
+    buf = trb.create(4096, h, device=dev)
     g = torch.Generator().manual_seed(0)
     n = 3000
     trb.push(buf, trb.Transition(
-        torch.randn(n, 9, generator=g), torch.randn(n, 5, 5, generator=g),
+        torch.randn(n, 9, generator=g), torch.randn(n, h, 5, generator=g),
         torch.randn(n, generator=g), torch.randn(n, generator=g),
-        torch.randn(n, 9, generator=g), torch.randn(n, 5, 5, generator=g),
+        torch.randn(n, 9, generator=g), torch.randn(n, h, 5, generator=g),
         (torch.rand(n, generator=g) < 0.8).float(),
         (torch.rand(n, generator=g) < 0.2).float()))
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1059,10 +1065,12 @@ def test_cuda_vnrl_captured_sgd_step_replays_eager(dev, optimizer):
         _states_equal(eager, trainer.state_dict(), f"{steps} steps")
 
 
-def test_cuda_sarl_captured_collection_replays_eager(dev):
-    """64 captured collection steps of SARL at ε = 0.5 and B=16 equal 64
-    eager ones bit for bit from the same carry and draws."""
-    config, art = _sarl_artifacts(dev)
+@pytest.mark.parametrize("model", list(BASELINES))
+def test_cuda_sarl_captured_collection_replays_eager(dev, model):
+    """64 captured collection steps of each learned baseline (CADRL at its
+    one human) at ε = 0.5 and B=16 equal 64 eager ones bit for bit from the
+    same carry and draws."""
+    config, art = _sarl_artifacts(dev, model=model)
     offset = config.env.sim.train_seed_offset
     gen = torch.Generator(device=dev).manual_seed(2)
     carry = art.explorer.init_carry(16, offset)
@@ -1075,6 +1083,46 @@ def test_cuda_sarl_captured_collection_replays_eager(dev):
         for name, x, y in zip(a._fields, a, b):
             torch.testing.assert_close(y, x, rtol=0, atol=0,
                                        msg=f"{part}.{name}")
+
+
+PORT_RESULTS = ROOT / "relationalgraphlearning_tpu_torch" / "results"
+
+
+@pytest.mark.parametrize("model", list(BASELINES))
+def test_cuda_port_trained_baseline_replays_eager(dev, model):
+    """The baselines the port trained from scratch (``results/<model>_s0``
+    of the package, its torch ``rl_model_best``): 64 test cases at 5
+    humans, the graphed rollout equal to the eager loop bit for bit."""
+    from relationalgraphlearning_tpu_torch.cli import test as eval_cli
+
+    model_dir = str(PORT_RESULTS / f"{model}_s0")
+    config, _ = eval_cli.configure(model_dir, human_num=5)
+    weights = eval_cli.weights_of(model_dir)
+    assert weights == str(PORT_RESULTS / f"{model}_s0" / "rl_model_best")
+    _, _, ex = eval_cli.build(config, BASELINES[model], weights, dev)
+    offset = config.env.sim.test_seed_offset
+    with torch.no_grad():
+        eager = ex.rollout(offset, range(64), graphed=False)
+        graphed = ex.rollout(offset, range(64), graphed=True)
+    for name, a, b in zip(eager._fields, eager, graphed):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
+
+
+def test_cuda_diag_unicycle_rollout_replays_eager(dev):
+    """The unicycle breakdown's rollout of ``results/mp_unicycle`` on 32
+    test cases: graphed equal to eager bit for bit, at most one outcome
+    off the JAX package's per-case record."""
+    from relationalgraphlearning_tpu_torch.tools import diag_unicycle as diag
+
+    config, explorer = diag.setup(str(ROOT / "results" / "mp_unicycle"), dev)
+    graphed = diag.rollout(explorer, 32)
+    eager = diag.rollout(explorer, 32, graphed=False)
+    for k, v in eager.items():
+        np.testing.assert_array_equal(graphed[k], v, err_msg=k)
+    ref = checkpoints.load_test_reference("mp_unicycle")["outcome"][:32]
+    assert (graphed["outcome"] != ref).sum() <= 1
+    summary, rows = diag.diagnose(graphed, config, 32)
+    assert summary["collision"] == len(rows)
 
 
 # -------------------------------- the partitioned paths on D ranks (slice 10)

@@ -9,13 +9,16 @@
 - ``collect`` at B=4 over 12 steps, with a 2 s time limit (8 steps) so
   that every env ends an episode and resets to its next case: with the
   ORCA demonstrator, with MP-RGL at ε = 0 (the committed ``mprl_td``
-  weights) and with SARL at ε = 0 (the committed ``sarl`` weights). Every trajectory field and the carry agree at 1e-5, 1e-4 where
+  weights) and with each one-step baseline at ε = 0 (the committed
+  weights of ``sarl``, ``sarl_om``, ``lstm_rl``, ``cadrl`` at its one
+  human, and ``rgl``). Every trajectory field and the carry agree at 1e-5, 1e-4 where
   ORCA's LP sets the value (the humans' motion, and the demonstrator's
   actions), as ``test_torch_orca.py`` states; flags, outcomes, step and
   case counters exactly.
 - ``update_memory``'s Monte-Carlo values and ``valid``, and its TD values,
-  on the reference's own trajectory fed to both, at 1e-6; what lands in
-  the buffer and its ring pointer.
+  on the reference's own trajectory fed to both, at 1e-6, with MP-RGL and
+  with CADRL at its one human; what lands in the buffer and its ring
+  pointer.
 - ``count_episodes`` on the same trajectory.
 """
 
@@ -63,13 +66,18 @@ def _configs(model="mprl_td"):
     return short(cfg_j), short(cfg_t)
 
 
+# the one-step baselines: model -> policy
+BASELINES = {"sarl": "sarl", "sarl_om": "sarl", "lstm_rl": "lstm_rl",
+             "cadrl": "cadrl", "rgl": "rgl"}
+
+
 def _explorers(kind):
-    cfg_j, cfg_t = _configs("sarl" if kind == "sarl" else "mprl_td")
-    if kind == "sarl":
-        tree = checkpoints.load_flax_tree("sarl")
-        pol_j = jmake("sarl", cfg_j.policy, cfg_j.env)
+    cfg_j, cfg_t = _configs(kind if kind in BASELINES else "mprl_td")
+    if kind in BASELINES:
+        tree = checkpoints.load_flax_tree(kind)
+        pol_j = jmake(BASELINES[kind], cfg_j.policy, cfg_j.env)
         params = jax.tree.map(jnp.asarray, tree)
-        pol_t = make_policy("sarl", cfg_t.policy, cfg_t.env,
+        pol_t = make_policy(BASELINES[kind], cfg_t.policy, cfg_t.env,
                             device="cpu").load_flax(tree)
     elif kind == "orca":
         safety = cfg_t.train.orca_safety_space
@@ -111,7 +119,8 @@ def test_case_table_is_the_references_reset():
                                   np.asarray(states.robot))
 
 
-@pytest.mark.parametrize("kind", ["orca", "mprl", "sarl"])
+@pytest.mark.parametrize("kind", ["orca", "mprl", "sarl", "sarl_om",
+                                  "lstm_rl", "cadrl", "rgl"])
 def test_collect_with_auto_reset_matches_jax(kind):
     cfg_t, jex, params, tex = _explorers(kind)
     offset = cfg_t.env.sim.train_seed_offset
@@ -154,9 +163,10 @@ def _traj_to_torch(jtraj):
     return Trajectory(*(torch.from_numpy(np.array(a)) for a in jtraj))
 
 
+@pytest.mark.parametrize("kind", ["mprl", "cadrl"])
 @pytest.mark.parametrize("imitation", [True, False])
-def test_update_memory_targets_match_jax(imitation):
-    cfg_t, jex, params, tex = _explorers("mprl")
+def test_update_memory_targets_match_jax(imitation, kind):
+    cfg_t, jex, params, tex = _explorers(kind)
     pol_j, pol_t = jex.policy, tex.policy
     offset = cfg_t.env.sim.train_seed_offset
     _, jtraj = _jax_collect(jex, params, offset)

@@ -41,7 +41,8 @@ for leaf in ("tools.ab_kernel", "types", "geometry", "checkpoints",
              "parallel.distributed", "parallel.graph_partition",
              "parallel.partitioned_build", "parallel.sharding",
              "runtime.native_orca", "utils.render", "utils.plot",
-             "utils.profiling"):
+             "utils.profiling", "tools.reproduce_quality",
+             "tools.diag_unicycle"):
     assert "relationalgraphlearning_tpu_torch." + leaf in names, leaf
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -14,7 +14,8 @@ the minibatch is made with numpy from a seed. Cases: imitation (the stored
 Monte-Carlo value), RL (a TD target from a target net with other weights),
 a batch whose gradient norm passes 10 (the clip), ``detach_state_predictor``
 on a shared graph model, ``freeze_state_predictor``, ``sp_update_stride=5``
-(six steps, the predictor loss in the first and the sixth) and ``VNRLTrainer``.
+(six steps, the predictor loss in the first and the sixth) and ``VNRLTrainer``,
+on MP-RGL's nets and on each one-step baseline's committed weights.
 float32 at rtol 1e-5, atol 1e-6.
 """
 
@@ -54,9 +55,10 @@ CASES = {
 }
 
 
-def _batch(seed, k=BATCH, value_scale=1.0):
-    """A minibatch as numpy: robots and humans scattered over the arena,
-    targets, rewards, validity (some 0) and terminals (some 1)."""
+def _batch(seed, k=BATCH, value_scale=1.0, n=N):
+    """A minibatch of ``n`` humans as numpy: robots and humans scattered
+    over the arena, targets, rewards, validity (some 0) and terminals (some
+    1)."""
     rng = np.random.default_rng(seed)
     robot = np.zeros((k, 9), np.float32)
     robot[:, :2] = rng.uniform(-4, 4, (k, 2))
@@ -67,9 +69,9 @@ def _batch(seed, k=BATCH, value_scale=1.0):
     robot[:, 8] = rng.uniform(-np.pi, np.pi, k)
 
     def humans():
-        return np.concatenate([rng.uniform(-4, 4, (k, N, 2)),
-                               rng.uniform(-1, 1, (k, N, 2)),
-                               np.full((k, N, 1), 0.3)], -1)
+        return np.concatenate([rng.uniform(-4, 4, (k, n, 2)),
+                               rng.uniform(-1, 1, (k, n, 2)),
+                               np.full((k, n, 1), 0.3)], -1)
 
     next_robot = robot.copy()
     next_robot[:, :2] += rng.uniform(-0.25, 0.25, (k, 2))
@@ -249,32 +251,48 @@ def test_clip_is_optax_not_torch_clip_grad_norm():
     assert torch.equal(small[0], torch.full((4,), 0.5))
 
 
-def test_vnrl_on_sarl_matches_jax():
-    """``VNRLTrainer`` on SARL (the committed weights): the loss, the
-    gradients through the rotation and the attention, one SGD step and one
-    Adam step (from the reference's gradients, as above) and the moments
-    after them, against the JAX package's ``VNRLTrainer``."""
+# the one-step baselines: model -> (policy, the weights' converter)
+BASELINES = {
+    "sarl": ("sarl", "sarl_from_flax"),
+    "sarl_om": ("sarl", "sarl_from_flax"),
+    "lstm_rl": ("lstm_rl", "lstm_rl_from_flax"),
+    "cadrl": ("cadrl", "cadrl_from_flax"),
+    "rgl": ("rgl", "value_estimator_from_flax"),
+}
+
+
+@pytest.mark.parametrize("model", BASELINES)
+def test_vnrl_on_sarl_matches_jax(model):
+    """``VNRLTrainer`` on each one-step baseline (the committed weights of
+    ``results/<model>``, at its own config: CADRL with one human): the
+    loss, the gradients through the rotation and the value net (SARL's
+    attention and occupancy maps, the LSTM over the humans, CADRL's MLP,
+    RGL's relation graph), one SGD step and one Adam step (from the
+    reference's gradients, as above) and the moments after them, against
+    the JAX package's ``VNRLTrainer``."""
     from relationalgraphlearning_tpu.policies.factory import (
         make_policy as jmake)
     from relationalgraphlearning_tpu_torch import checkpoints
-    from relationalgraphlearning_tpu_torch.convert import sarl_from_flax
+    from relationalgraphlearning_tpu_torch import convert
     from relationalgraphlearning_tpu_torch.policies.factory import (
         make_policy)
 
-    cfg_j, cfg_t = configs("sarl")
-    tree = checkpoints.load_flax_tree("sarl")
+    policy, converter = BASELINES[model]
+    from_flax = getattr(convert, converter)
+    cfg_j, cfg_t = configs(model)
+    tree = checkpoints.load_flax_tree(model)
     params = jax.tree.map(jnp.asarray, tree)
-    pol_j = jmake("sarl", cfg_j.policy, cfg_j.env)
+    pol_j = jmake(policy, cfg_j.policy, cfg_j.env)
     jtrainer = jtr.VNRLTrainer(pol_j)
-    pol_t = make_policy("sarl", cfg_t.policy, cfg_t.env,
+    pol_t = make_policy(policy, cfg_t.policy, cfg_t.env,
                         device="cpu").load_flax(tree)
     trainer = ttr.VNRLTrainer(pol_t)
-    b = _batch(2)
+    b = _batch(2, n=cfg_t.env.sim.human_num)
     jb, tb = _jax_batch(b), _torch_batch(b)
 
     def close(got: dict, flax_tree, what):
         want = {f"model.{k}": v
-                for k, v in sarl_from_flax(_np_tree(flax_tree)).items()}
+                for k, v in from_flax(_np_tree(flax_tree)).items()}
         assert set(got) == set(want), what
         for k in want:
             np.testing.assert_allclose(got[k].detach().numpy(),
@@ -299,7 +317,7 @@ def test_vnrl_on_sarl_matches_jax():
             trainer.train_step(tb, torch.tensor(1.0))
         else:
             want = {f"model.{k}": v for k, v in
-                    sarl_from_flax(_np_tree(grads_j)).items()}
+                    from_flax(_np_tree(grads_j)).items()}
             with torch.no_grad():
                 for n, p in zip(trainer.names, trainer.params):
                     p.grad.copy_(want[n])

@@ -147,7 +147,8 @@ Phases, each of which exits non-zero on failure:
     ``launches`` must be the eager run's (#1 D x 2 x 8, D x 2 x 16) and
     whose replay must equal the eager run bit for bit; the rows time both
     modes in turns (E G G E) beside the capture seconds. One card: these
-    rates are plumbing.
+    rates are plumbing. The rows (``partition_row``, ``mega_row``) are
+    ``tools/bench_scaling.py``'s.
 12. The data- and tensor-parallel path (``parallel/sharding.py``) at the
     full width of ``mp_separate``, the first stage of the reference's
     multi-device dry run at its meshes for 2, 4 and 8 devices, (data,
@@ -164,7 +165,27 @@ Phases, each of which exits non-zero on failure:
     counts (the checkpoints bit for bit), ``NativeORCA`` against
     ``envs/orca.py`` on 64 test cases' humans on the card, and one
     ``mprl_td`` test case rendered to a GIF. None of #1-#7 may launch.
-13. Print the ``kernels`` line, the card line and the last line.
+13. The repository's four measurement entry points (slice 13). Kernels
+    #1/#2 in bfloat16 against their plain versions at ``bench_roofline``'s
+    chain shapes (n=8192, K=16, d=64, B=256, C=640) and at the JAX test's
+    (n=1024, K=8, B=128, C=384, d=32, dv=48), stable and unshifted, every
+    epilogue, rows with no edge, within two bfloat16 ulps (rtol=atol=2^-7);
+    timed at the roofline's shapes as phase 3 times the float32 rows (warm
+    and cold L2, the byte bound with bfloat16 tables, the plain version,
+    one bfloat16 ``scaled_dot_product_attention`` over the gathered window)
+    beside the float32 kernel on the same rows; the FMA kernel of
+    ``vpu_peak`` (``csrc/roofline.cu``) against its plain version, bit for
+    bit. Then bench.py's collection graphed == eager at B=1024 (16 steps),
+    and each tool's ``main`` at the reference's sizes (``tools/bench.py``
+    with 2 graphed trials and 1 eager, the reference's 5;
+    ``tools/bench_extra.py``; ``tools/bench_roofline.py``, its record to
+    ``chiprun_out/ROOFLINE.json``; ``tools/bench_scaling.py`` and ``--mega``
+    with 1 timed replay a row, the reference's 3), printing their lines and
+    walls, with exact launches: none on bench.py's collection and on the
+    planner, #1 100 times a fused-block chain row (f32 and bf16), 64 times
+    a 102,400-agent R=8 rollout, D·2·8 a block-halo row and D·2·16 a mega
+    row; the FMA kernel 16 times in ``vpu_peak``.
+14. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 """
@@ -172,7 +193,6 @@ Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 from __future__ import annotations
 
 import argparse
-import copy
 import json
 import math
 import os
@@ -193,31 +213,36 @@ from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch import types as T
 from relationalgraphlearning_tpu_torch.cli import test as eval_cli
 from relationalgraphlearning_tpu_torch.configs.base import (
-    GCNConfig, load_config_module)
+    EnvConfig, GCNConfig, PolicyConfig, load_config_module)
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
+from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
 from relationalgraphlearning_tpu_torch.envs.orca import ORCAParams
-from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
-    SparseRGL, SparseValueNet)
 from relationalgraphlearning_tpu_torch.ops import _build
 from relationalgraphlearning_tpu_torch.ops import ab_block as ab
 from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
-from relationalgraphlearning_tpu_torch.ops.sparse import (
-    knn_graph, knn_graph_auto)
+from relationalgraphlearning_tpu_torch.ops import roofline
+from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.parallel import distributed
 from relationalgraphlearning_tpu_torch.parallel import graph_partition as gp
 from relationalgraphlearning_tpu_torch.parallel import partitioned_build as pb
 from relationalgraphlearning_tpu_torch.parallel import sharding
+from relationalgraphlearning_tpu_torch.policies.factory import make_policy
 from relationalgraphlearning_tpu_torch.parallel.comm import run_local
 from relationalgraphlearning_tpu_torch.parallel.mesh import (
     make_mesh, split_rows)
 from relationalgraphlearning_tpu_torch.tools import ab_kernel as ak
+from relationalgraphlearning_tpu_torch.tools import bench as tb
+from relationalgraphlearning_tpu_torch.tools import bench_extra as tbe
+from relationalgraphlearning_tpu_torch.tools import bench_roofline as tbr
+from relationalgraphlearning_tpu_torch.tools import bench_scaling as bs
 from relationalgraphlearning_tpu_torch.tools import diag_unicycle as diag
 from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
 from relationalgraphlearning_tpu_torch.training import train_loop
+from relationalgraphlearning_tpu_torch.training.explorer import Explorer
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -244,7 +269,8 @@ ROUTE_KERNEL = {"gather_kernel": "fused_gather_attention",
                 "chunk": "chunk_block_attention",
                 "chunk_d32": "chunk_block_attention"}
 SOURCES = ("fused_block_attention.cu", "fused_gather_attention.cu",
-           "chunk_block_attention.cu", "ab_block_attention.cu")
+           "chunk_block_attention.cu", "ab_block_attention.cu",
+           "roofline.cu")
 # Kernel #6's four instantiations in the harness: (dtype, div_after,
 # intmask); phase 3c also checks the other four combinations.
 AB_VARIANTS = {"base_f32": (torch.float32, False, False),
@@ -313,15 +339,6 @@ PORT_RESULTS = ROOT / "relationalgraphlearning_tpu_torch" / "results"
 # the SXM part is the default.
 PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
          ("H100", 67e12, 3.35e12))
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def peaks(name: str):
@@ -400,19 +417,13 @@ def slice_inputs(dev, C=576):
     vel = torch.zeros_like(pos)
     pos, (vel,), cols, _, cand, mbits, cov = mega_crowd.rebuild(
         pos, (vel,), SLICE["K"], "block", SLICE["block_B"], C, True)
-    net = seeded_net("block", dev)
+    net = bs.seeded_value_net("block", dev)
     states = torch.cat([pos, vel, torch.full_like(pos[:, :1], 0.3)], -1)
     with torch.no_grad():
         H = net.graph_model.w_h(states)
         q = net.graph_model.w_a(H)
     nb = cand.shape[0]
     return q.reshape(nb, -1, q.shape[1]).contiguous(), H, cand, mbits, cov
-
-
-def seeded_net(backend, dev, seed=1):
-    g = torch.Generator().manual_seed(seed)
-    return SparseValueNet(GCNConfig(), backend=backend,
-                          generator=g).to(dev).eval()
 
 
 def unit_rows(t):
@@ -612,7 +623,7 @@ def pallas_inputs(dev):
     vel = torch.zeros_like(pos)
     pos, (vel,), cols, _, _, _, _ = mega_crowd.rebuild(
         pos, (vel,), PALLAS["K"], "pallas", 256, 576, False)
-    net = seeded_net("pallas", dev)
+    net = bs.seeded_value_net("pallas", dev)
     states = torch.cat([pos, vel, torch.full_like(pos[:, :1], 0.3)], -1)
     with torch.no_grad():
         H = net.graph_model.w_h(states)
@@ -1049,9 +1060,9 @@ def slice_phase(dev, report, runs=3):
         True)
     states = torch.cat([pos_s, vel_s, torch.full_like(pos_s[:, :1], 0.3)], -1)
     with torch.no_grad():
-        v_block = seeded_net("block", dev)(states, cols, block_cand=cand,
-                                           block_emask=mbits)
-        v_gather = seeded_net("gather", dev)(states, cols)
+        v_block = bs.seeded_value_net("block", dev)(
+            states, cols, block_cand=cand, block_emask=mbits)
+        v_gather = bs.seeded_value_net("gather", dev)(states, cols)
     torch.testing.assert_close(v_block, v_gather, **TOL)
     net_err = float((v_block - v_gather).abs().max())
 
@@ -1202,10 +1213,10 @@ def pallas_phase(dev, report, runs=3):
         raise RuntimeError(f"block window coverage {float(cov_b)} != 1")
     states = torch.cat([pos_s, vel_s, torch.full_like(pos_s[:, :1], 0.3)], -1)
     with torch.no_grad():
-        v_pallas = seeded_net("pallas", dev)(states, cols)
-        v_block = seeded_net("block", dev)(states, cols, block_cand=cand,
-                                           block_emask=mbits)
-        v_gather = seeded_net("gather", dev)(states, cols)
+        v_pallas = bs.seeded_value_net("pallas", dev)(states, cols)
+        v_block = bs.seeded_value_net("block", dev)(
+            states, cols, block_cand=cand, block_emask=mbits)
+        v_gather = bs.seeded_value_net("gather", dev)(states, cols)
     torch.testing.assert_close(v_pallas, v_block, **TOL)
     torch.testing.assert_close(v_pallas, v_gather, **TOL)
     errs = dict(pallas_vs_block=float((v_pallas - v_block).abs().max()),
@@ -1446,7 +1457,7 @@ def diag_check(dev, model="mp_unicycle"):
     cases = config.env.sim.test_size
     recs, walls = {}, {}
     for mode in ("graphed", "eager"):  # the first call captures
-        walls[mode] = _timed(lambda: recs.update({mode: diag.rollout(
+        walls[mode] = bs.timed(lambda: recs.update({mode: diag.rollout(
             explorer, cases, graphed=mode == "graphed")}))
     for k, v in recs["eager"].items():
         if not np.array_equal(recs["graphed"][k], v):
@@ -1604,7 +1615,7 @@ def profile_phase(dev, report):
     rad = torch.full((cfg["n"],), 0.3, device=dev)
     vmax = torch.ones_like(rad)
     act = torch.ones_like(rad, dtype=torch.bool)
-    net = seeded_net("block", dev)
+    net = bs.seeded_value_net("block", dev)
     sections = ("rebuild", "orca", "value_net")
 
     def chunk(times=None):
@@ -1743,14 +1754,6 @@ def _state_equal(what, a: dict, b: dict):
                 msg=lambda m: f"{what}: optimizer state {i}.{k}: {m}")
 
 
-def _timed(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
 def sgd_check(art, buffer, gen, tc, label):
     """One and then 8 captured SGD steps against as many eager ones from
     the same state and indices, for SGD (imitation) and Adam (RL); then
@@ -1768,7 +1771,7 @@ def sgd_check(art, buffer, gen, tc, label):
             eager = trainer.state_dict()
             trainer.load_state(before)
             # n = 1 captures (the warm-up restored), then replays once
-            wall = _timed(lambda: trainer.optimize(buffer, idx, use_td,
+            wall = bs.timed(lambda: trainer.optimize(buffer, idx, use_td,
                                                    graphed=True))
             row.setdefault("capture_s", wall)
             _state_equal(f"{name}: {n} graphed SGD steps vs eager",
@@ -1777,7 +1780,7 @@ def sgd_check(art, buffer, gen, tc, label):
         for mode in ("eager", "graphed", "graphed", "eager"):
             steps = TRAIN["sgd_timed"][mode == "eager"]
             idx = rb.sample_indices(buffer, gen, (steps, tc.batch_size))
-            walls[mode].append(_timed(lambda: trainer.optimize(
+            walls[mode].append(bs.timed(lambda: trainer.optimize(
                 buffer, idx, use_td, graphed=mode == "graphed")) / steps)
         row.update(sgd_steps_per_s=1 / statistics.median(walls["graphed"]),
                    sgd_steps_per_s_eager=1 / statistics.median(
@@ -1805,10 +1808,10 @@ def collect_check(art, gen, offset, policy, label):
         draws = art.explorer.draws(gen, K, B)
         out = {}
         walls = {"eager": [], "graphed": []}
-        first = _timed(lambda: out.update(graphed=expl.collect(
+        first = bs.timed(lambda: out.update(graphed=expl.collect(
             carry, K, offset, eps, draws, graphed=True)))
         for mode in ("eager", "graphed", "graphed", "eager"):
-            walls[mode].append(_timed(lambda: out.update({
+            walls[mode].append(bs.timed(lambda: out.update({
                 mode: expl.collect(carry, K, offset, eps, draws,
                                    graphed=mode == "graphed")})))
         for part, got, want in (("carry", out["graphed"][0], out["eager"][0]),
@@ -1957,7 +1960,7 @@ def query_env_check(dev):
     offset, cases = sim.test_seed_offset, range(sim.test_size)
     walls, finals = {}, {}
     for mode in ("graphed", "eager"):  # the first call captures
-        walls[mode] = _timed(lambda: finals.update({mode: explorer.rollout(
+        walls[mode] = bs.timed(lambda: finals.update({mode: explorer.rollout(
             offset, cases, graphed=mode == "graphed")}))
     for name, got, ref in zip(finals["eager"]._fields, finals["graphed"],
                               finals["eager"]):
@@ -2014,134 +2017,14 @@ def baselines_phase(dev, report):
 
 
 # ----------------------------------------------------------------- phase 11
-# bench_scaling.py's protocol (measure :20-90, measure_mega :93-146) with
-# fewer timed runs (it takes 3), in turns E G G E: the eager ranks' threads
-# contend for the host, and D=8's eager mega run takes ~12 s on one card; a
-# mega turn is one run
-PARTITION = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, K=16, inner=8, B=128,
-                 C=448, reps=2, graph_reps=10)
-MEGA = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, steps=16, R=8, n_cap=2688,
-            B=128, C=512, K=16, K_orca=10, mig_cap=256)
+# bench_scaling.py's protocol: its rows (partition_row, mega_row) and their
+# sizes (PARTITION, MEGA) live in the port's tools/bench_scaling.py.
+PARTITION, MEGA = bs.PARTITION, bs.MEGA
 # the JAX package's tests/test_partitioned_build.py case
 MEGA_SMALL = dict(n=600, steps=8, R=2, spec=dict(
     D=4, n_cap=256, x0=-24.0, band_w=12.0, y0=-24.0, cell=3.0, grid_w=64,
     B=64, C=256, K=8, K_orca=6, mig_cap=32))
-PARTITION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_parallel.py:99-100
-MEGA_ATOL = 1e-4            # tests/test_partitioned_build.py:99-102
-MEGA_VMEAN_FULL = 1e-3      # |vmean| at full size, against one device
-
-
-def partition_chain_rank(comm, model, method, halo, inner, states, a, b):
-    """One rank of ``inner`` chained partitioned forwards, each output
-    re-injected into the velocity columns (bench_scaling.py:55-58)."""
-    s = states
-    for _ in range(inner):
-        if method == "block_halo":
-            h = gp.block_rgl_rank(comm, model, halo, s, a, b)
-        else:
-            h = gp.sparse_rgl_rank(comm, model, method, s, a, b)
-        s = torch.cat([s[:, :2], h[:, :2] * 1e-6, s[:, 4:]], dim=-1)
-    return s
-
-
-def partition_inputs(D, method, dev, seed=0):
-    """bench_scaling.measure's set-up at n = 2048·D: uniform positions in a
-    100 m box (spatially sorted for the block path), K=16 dense kNN; the
-    block path's windows, packed masks and halo."""
-    cfg = PARTITION
-    n = cfg["n_per_rank"] * D
-    g = torch.Generator().manual_seed(seed)
-    pos = (torch.rand(n, 2, generator=g) * 100.0).to(dev)
-    if method == "block_halo":
-        pos = pos[bg.spatial_sort(pos)]
-    states = torch.cat([pos, torch.zeros_like(pos),
-                        torch.full_like(pos[:, :1], 0.3)], -1)
-    cols = knn_graph(pos, cfg["K"])
-    if method != "block_halo":
-        return states, cols, None, None, 0
-    cand, cov = bg.block_window(cols, cfg["B"], cfg["C"])
-    if float(cov) != 1.0:
-        raise RuntimeError(f"block_halo D={D}: window coverage {float(cov)}")
-    mbits = fb.pack_emask(bg.block_masks(cols, cand))
-    halo = max(8, -(-gp.halo_reach(cand, cfg["B"], n // D) // 8) * 8)
-    if halo >= n // D:
-        raise RuntimeError(f"block_halo D={D}: halo {halo} >= {n // D} rows")
-    return states, cols, cand, mbits, halo
-
-
-def partition_row(method, D, model, dev):
-    """One row of bench_scaling.measure: the eager ranks (their launches
-    counted) and the ranks captured as one CUDA graph (``Mesh.capture``),
-    the graph equal to the eager run bit for bit, timed in turns E G G E."""
-    cfg = PARTITION
-    states, cols, cand, mbits, halo = partition_inputs(D, method, dev)
-    n = states.shape[0]
-    mesh = make_mesh(data=D, device=dev)
-    a, b = (cand, mbits) if method == "block_halo" else (cols, None)
-    rep = (model, method, halo, cfg["inner"])
-
-    def run():
-        return mesh.run(partition_chain_rank, replicated=rep,
-                        row_sharded=(states, a, b))
-
-    captured.reset_launch_counts()
-    eager_out = run()
-    torch.cuda.synchronize()
-    launches = captured.launch_counts()
-    want = {k: 0 for k in launches}
-    if method == "block_halo":
-        want["fused_block_attention_packed_shared"] = D * 2 * cfg["inner"]
-    if launches != want:
-        raise RuntimeError(f"{method} D={D}: launches {launches}, want "
-                           f"{want}")
-    t = time.perf_counter()
-    graph = mesh.capture(partition_chain_rank, replicated=rep,
-                         row_sharded=(states, a, b))
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t
-    if graph.launches != want:
-        raise RuntimeError(f"{method} D={D}: the graph holds "
-                           f"{graph.launches}, want {want}")
-    torch.testing.assert_close(graph(states, a, b), eager_out, **REPLAY_TOL,
-                               msg=lambda m: f"{method} D={D} graphed vs "
-                               f"eager: {m}")
-    walls = {"eager": [], "graphed": []}
-    for mode in ("eager", "graphed", "graphed", "eager"):
-        fn = run if mode == "eager" else (lambda: graph(states, a, b))
-        reps = cfg["reps"] if mode == "eager" else cfg["graph_reps"]
-        walls[mode].append(_timed(lambda: [fn() for _ in range(reps)])
-                           / reps)
-    dt = statistics.median(walls["eager"])
-    dt_graphed = statistics.median(walls["graphed"])
-
-    # one forward against the one-device SparseRGL: gather on the card;
-    # block on the CPU, where #1's plain version runs, so the halo path's
-    # kernel is held against code that shares nothing with it
-    if method == "block_halo":
-        got = gp.partitioned_block_rgl(model, states, cand, mbits, mesh,
-                                       halo)
-        one = SparseRGL(GCNConfig(), backend="block").eval()
-        one.load_state_dict(model.state_dict())
-        want_h = one(states.cpu(), cols.cpu(), block_cand=cand.cpu(),
-                     block_emask=mbits.cpu()).to(dev)
-    else:
-        got = gp.partitioned_sparse_rgl(model, states, cols, mesh,
-                                        method=method)
-        want_h = model(states, cols)
-    torch.cuda.synchronize()
-    err = float((got - want_h).abs().max())
-    rel = float(((got - want_h).abs()
-                 / (PARTITION_TOL["atol"] + PARTITION_TOL["rtol"]
-                    * want_h.abs())).max())
-    torch.testing.assert_close(got, want_h, **PARTITION_TOL,
-                               msg=lambda m: f"{method} D={D}: {m}")
-    edges = n * cfg["K"] * cfg["inner"] * GCNConfig().num_layer
-    return dict(method=method, D=D, n=n, halo=halo, seconds=dt,
-                medges_per_s=edges / dt / 1e6, seconds_graphed=dt_graphed,
-                medges_per_s_graphed=edges / dt_graphed / 1e6,
-                capture_s=capture_s, walls=walls, max_abs_err=err,
-                err_over_limit=rel, launches=launches,
-                graph_launches=graph.launches)
+MEGA_ATOL = bs.MEGA_ATOL
 
 
 def kernel_2_on_halo(model, dev, flops, bw, report, D=4):
@@ -2150,7 +2033,8 @@ def kernel_2_on_halo(model, dev, flops, bw, report, D=4):
     Then #1 and #2 on one rank's kernel inputs (rank 1's, as the path
     builds them): each held against its plain version, then timed."""
     cfg = PARTITION
-    states, _, cand, mbits, halo = partition_inputs(D, "block_halo", dev)
+    states, _, cand, mbits, halo = bs.partition_inputs(D, "block_halo",
+                                                       dev)
     n, d = states.shape[0], GCNConfig().X_dim
     g = torch.Generator().manual_seed(7)
     q, x = (unit_rows(torch.randn(n, d, generator=g)).to(dev)
@@ -2222,117 +2106,6 @@ def kernel_2_on_halo(model, dev, flops, bw, report, D=4):
                 timing=timing)
 
 
-def mega_graph_rank(comm, spec, sh):
-    """Per rank: a chunk's sort and build on these shards; the value net's
-    states, the windows and masks, and the active slots."""
-    sh = pb._local_sort(sh, spec)
-    _, _, cand, mbits, *_ = pb._build_graph(comm, sh, spec)
-    states = torch.cat([sh.pos, sh.vel, sh.rad[:, None]], dim=-1)
-    return states, cand, mbits, sh.active
-
-
-def mega_values_check(D, spec, net, sh, dev):
-    """The rollout's value net (#1 through the full-slab halo) per agent on
-    its final shards, against the same ranks on the CPU, where #1's plain
-    version runs: every agent's value, the halo's edge rows included."""
-    mesh = make_mesh(data=D, device=dev)
-    states, cand, mbits, active = mesh.run(mega_graph_rank,
-                                           replicated=(spec,),
-                                           row_sharded=(sh,))
-    got = mesh.run(pb._value_net_fullshard, replicated=(net,),
-                   row_sharded=(states, cand, mbits))
-    want = make_mesh(data=D, device="cpu").run(
-        pb._value_net_fullshard, replicated=(copy.deepcopy(net).cpu(),),
-        row_sharded=(states.cpu(), cand.cpu(), mbits.cpu()))
-    got, want = got[active].cpu(), want[active.cpu()]
-    torch.testing.assert_close(got, want, **PARTITION_TOL,
-                               msg=lambda m: f"mega D={D} values: {m}")
-    return float((got - want).abs().max())
-
-
-def mega_row(D, net, dev):
-    cfg = MEGA
-    n = cfg["n_per_rank"] * D
-    half = 100.0 * math.sqrt(n / 10240.0)   # the mega_crowd density
-    g = torch.Generator().manual_seed(0)
-    pos = ((torch.rand(n, 2, generator=g) * 2.0 - 1.0) * half).to(dev)
-    spec = pb.BandSpec(D=D, n_cap=cfg["n_cap"], x0=-half, band_w=2 * half / D,
-                       y0=-half, cell=2 * half / 64, grid_w=256, B=cfg["B"],
-                       C=cfg["C"], K=cfg["K"], K_orca=cfg["K_orca"],
-                       mig_cap=cfg["mig_cap"])
-    agents = (pos, torch.zeros_like(pos), -pos,
-              torch.full((n,), 0.3, device=dev), torch.ones(n, device=dev))
-    shards = pb.init_crowd_shards(*(a.cpu() for a in agents), spec,
-                                  device=dev)
-    mesh = make_mesh(data=D, device=dev)
-    run = pb.partitioned_mega_rollout(mesh, spec, net, ORCAParams(),
-                                      cfg["steps"], cfg["R"])
-    walls = {"eager": [], "graphed": []}
-    captured.reset_launch_counts()
-    t = time.perf_counter()
-    sh, diag = run(shards)
-    torch.cuda.synchronize()
-    walls["eager"].append(time.perf_counter() - t)
-    launches = captured.launch_counts()
-    want = {k: 0 for k in launches}
-    want["fused_block_attention_packed_shared"] = D * 2 * cfg["steps"]
-    if launches != want:
-        raise RuntimeError(f"mega D={D}: launches {launches}, want {want}")
-    diag = {k: float(v) for k, v in diag.items()}
-    aid = sh.aid[sh.active].sort().values.cpu()
-    if not torch.equal(aid, torch.arange(n, dtype=aid.dtype)):
-        raise RuntimeError(f"mega D={D}: {aid.numel()} of {n} agents kept")
-    if (diag["win_cov"] != 1.0 or diag["overflow"] != 0
-            or diag["lost"] != 0 or not math.isfinite(diag["vmean"])):
-        raise RuntimeError(f"mega D={D}: diagnostics {diag}")
-
-    # the whole rollout of every rank, rebuilds included, as one graph
-    graphed = pb.partitioned_mega_rollout(mesh, spec, net, ORCAParams(),
-                                          cfg["steps"], cfg["R"],
-                                          graphed=True)
-    t = time.perf_counter()
-    g_sh, g_diag = graphed(shards)              # captures, then replays
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t
-    if graphed.graph.launches != want:
-        raise RuntimeError(f"mega D={D}: the graph holds "
-                           f"{graphed.graph.launches}, want {want}")
-    for name, got, ref in zip(sh._fields, g_sh, sh):
-        torch.testing.assert_close(got, ref, **REPLAY_TOL, msg=lambda m: (
-            f"mega D={D} graphed {name} vs eager: {m}"))
-    if {k: float(v) for k, v in g_diag.items()} != diag:
-        raise RuntimeError(f"mega D={D}: graphed diagnostics {g_diag} vs "
-                           f"eager {diag}")
-    for mode in ("graphed", "graphed", "eager"):
-        walls[mode].append(_timed(lambda: (graphed if mode == "graphed"
-                                           else run)(shards)))
-    dt = statistics.median(walls["eager"])
-    dt_graphed = statistics.median(walls["graphed"])
-
-    # the one-device loop: dense kNN, kNN ORCA, the gather value net
-    one = SparseValueNet(GCNConfig(), backend="gather").to(dev).eval()
-    one.load_state_dict(net.state_dict())
-    rpos, _, rvmean = pb.single_device_rollout(
-        one, *agents, ORCAParams(), cfg["steps"], cfg["R"], cfg["K"],
-        cfg["K_orca"])
-    dpos = (sh.pos[sh.active][sh.aid[sh.active].argsort()] - rpos).abs()
-    dpos = dpos.amax(-1)
-    dvmean = abs(diag["vmean"] - float(rvmean))
-    row = dict(D=D, n=n, seconds=dt, agent_steps_per_s=n * cfg["steps"] / dt,
-               seconds_graphed=dt_graphed,
-               agent_steps_per_s_graphed=n * cfg["steps"] / dt_graphed,
-               capture_s=capture_s, walls=walls,
-               graph_launches=graphed.graph.launches, **diag,
-               max_dvalue=mega_values_check(D, spec, net, sh, dev),
-               max_dpos=float(dpos.max()),
-               agents_dpos_over_1e4=int((dpos > MEGA_ATOL).sum()),
-               dvmean=dvmean, launches=launches)
-    if dvmean > MEGA_VMEAN_FULL:
-        raise RuntimeError(f"mega D={D}: |vmean - one device| = {dvmean} "
-                           f"> {MEGA_VMEAN_FULL} ({row})")
-    return row
-
-
 def mega_small_check(dev):
     """The JAX package's 600-agent D=4 case against the one-device loop,
     on the card, at the reference's limits."""
@@ -2343,12 +2116,12 @@ def mega_small_check(dev):
     agents = (pos, torch.zeros_like(pos), -pos,
               torch.full((n,), 0.3, device=dev), torch.ones(n, device=dev))
     spec = pb.BandSpec(**c["spec"])
-    net = seeded_net("block", dev)
+    net = bs.seeded_value_net("block", dev)
     sh, diag = pb.partitioned_mega_rollout(
         make_mesh(data=spec.D, device=dev), spec, net, ORCAParams(),
         c["steps"], c["R"])(pb.init_crowd_shards(
             *(a.cpu() for a in agents), spec, device=dev))
-    one = seeded_net("gather", dev)
+    one = bs.seeded_value_net("gather", dev)
     rpos, rvel, rvmean = pb.single_device_rollout(
         one, *agents, ORCAParams(), c["steps"], c["R"], spec.K, spec.K_orca)
     order = sh.aid[sh.active].argsort()
@@ -2370,7 +2143,8 @@ def gloo_check(model, dev, D=2):
     """The D=2 block forward as two ``torch.distributed`` processes (gloo,
     through host memory) sharing the card, against the same ranks as
     threads: the same kernels on the same rows, so bit for bit."""
-    states, _, cand, mbits, halo = partition_inputs(D, "block_halo", dev)
+    states, _, cand, mbits, halo = bs.partition_inputs(D, "block_halo",
+                                                       dev)
     threads = gp.partitioned_block_rgl(model, states, cand, mbits,
                                        make_mesh(data=D, device=dev), halo)
     t = time.perf_counter()
@@ -2387,13 +2161,13 @@ def partition_phase(dev, flops, bw, report):
     """Slice 10: the node-partitioned paths on D ranks (threads on the
     card). Returns the launches of #1 and #2 on the halo paths."""
     t0 = time.perf_counter()
-    model = seeded_net("gather", dev).graph_model
+    model = bs.seeded_value_net("gather", dev).graph_model
     rows = []
     with torch.no_grad():
         for method in ("ring", "allgather", "block_halo"):
             base = None
             for D in PARTITION["ranks"]:
-                row = partition_row(method, D, model, dev)
+                row = bs.partition_row(method, D, model, dev)
                 base = base or (row["medges_per_s"],
                                 row["medges_per_s_graphed"])
                 row["scaling_efficiency_vs_D1"] = (
@@ -2418,11 +2192,11 @@ def partition_phase(dev, flops, bw, report):
                           f", library {v['library_ms']}, bound "
                           f"{v['bound_ms']:.5f})"
                           for k, v in k2["timing"].items()), flush=True)
-        net = seeded_net("block", dev)
+        net = bs.seeded_value_net("block", dev)
         mega = []
         base = None
         for D in MEGA["ranks"]:
-            row = mega_row(D, net, dev)
+            row = bs.mega_row(D, net, dev)
             base = base or (row["agent_steps_per_s"],
                             row["agent_steps_per_s_graphed"])
             row["scaling_efficiency_vs_D1"] = (
@@ -2531,7 +2305,7 @@ def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
     collect = sharding.make_parallel_collect(art.explorer, mesh, DP["K"],
                                              sim.train_seed_offset)
     res = {}
-    collect_s = _timed(lambda: res.update(out=collect(
+    collect_s = bs.timed(lambda: res.update(out=collect(
         carry, DP["eps"], draws, graphed=True)))
     _, traj = res["out"]
     for name, g, w in zip(want._fields, traj, want):
@@ -2547,7 +2321,7 @@ def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
             par = sharding.ParallelTrainer(
                 dp_fresh(config, state, dev, name, lr).trainer, mesh)
             aux = {}
-            wall = _timed(lambda: aux.update(a=par.optimize(
+            wall = bs.timed(lambda: aux.update(a=par.optimize(
                 buffer, idx, use_td, graphed=mode == "graphed")))
             runs[mode] = (par, aux["a"], wall)
         par, aux, capture_s = runs["graphed"]
@@ -2571,7 +2345,7 @@ def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
                 steps = DP["sgd_timed"][mode == "eager"]
                 ti = rb.sample_indices(buffer, gen, (steps, tc.batch_size))
                 p = runs[mode][0]
-                walls[mode].append(_timed(lambda: p.optimize(
+                walls[mode].append(bs.timed(lambda: p.optimize(
                     buffer, ti, use_td, graphed=mode == "graphed")) / steps)
             sub.update(sgd_steps_per_s=1 / statistics.median(
                 walls["graphed"]), sgd_steps_per_s_eager=1 / statistics
@@ -2768,6 +2542,287 @@ def dp_phase(dev, report):
           f"{one_device.get('adam')})", flush=True)
 
 
+# ----------------------------------------------------------------- phase 13
+# Kernels #1/#2 in bfloat16 at bench_roofline.py's chain shapes (n=8192,
+# K=16, d=64, B=256, C=640) and at the JAX test's set-up
+# (tests/test_pallas_block.py:65-76: n=1024, K=8, B=128, C=384, d=32,
+# dv=48): two bfloat16 ulps of the output. Both sides read the same
+# bfloat16 features and round e and the output to nearest even from float32
+# sums taken in other orders, so e and then the output may each land one ulp
+# apart (the plain version against the JAX kernel on the CPU: at most one).
+BF16_KERNEL_TOL = dict(rtol=2**-7, atol=2**-7)
+BF16_SHAPES = (("roofline", dict(n=8192, K=16, B=256, C=640, d=64, dv=64,
+                                 side=100.0)),
+               ("jax_test", dict(n=1024, K=8, B=128, C=384, d=32, dv=48,
+                                 side=30.0)))
+# The FMA chain from x = 1: in both versions every step adds exactly one
+# float32 ulp of 1 (1.0000001 is 1 + 2^-23 in float32, and neither the
+# product's excess nor 1e-9 reaches half an ulp), so the same bits.
+FMA = dict(n=1 << 20, fmas=128, passes=64)
+FMA_TOL = dict(rtol=0, atol=0)
+# The four tools' mains at the reference's sizes. Fewer trials where the
+# protocol allows it: bench.py's collector 2 graphed trials (its 5) and 1
+# eager trial; bench_scaling's 1 timed replay a row (its 3). bench_extra
+# and bench_roofline keep theirs.
+BENCH_ARGS = ["--trials", "2", "--eager_trials", "1"]
+SCALING_ARGS = ["--reps", "1"]
+
+
+def bf16_window(cfg, dev, seed=11):
+    """The shape's sorted kNN graph, its window and packed mask, and
+    unit-normal features (and unit rows for the unshifted softmax) in
+    bfloat16."""
+    cols = rc.crowd_graph(cfg["n"], cfg["K"], side=cfg["side"], seed=seed,
+                          device=dev)
+    cand, cov = bg.block_window(cols, cfg["B"], cfg["C"])
+    if float(cov) != 1.0:
+        raise RuntimeError(f"bf16 window coverage {float(cov)} != 1 ({cfg})")
+    mbits = fb.pack_emask(bg.block_masks(cols, cand))
+    g = torch.Generator().manual_seed(seed + 1)
+    n, d, dv = cfg["n"], cfg["d"], cfg["dv"]
+    q, x = (torch.randn(n, d, generator=g) for _ in range(2))
+    v = torch.randn(n, dv, generator=g)
+    bf = torch.bfloat16
+    feats = {True: tuple(t.to(dev, bf) for t in (q, x, v)),
+             False: tuple(t.to(dev, bf) for t in (unit_rows(q), unit_rows(x),
+                                                  v))}
+    return cand, mbits, feats
+
+
+def bf16_kernel_phase(dev, flops, bw, report):
+    """#1/#2 in bfloat16 against their plain versions on the card, stable
+    and unshifted, every epilogue, rows with no edge; then timed at the
+    roofline's shapes as phase 3 times the float32 rows."""
+    errs = {"shared": [], "separate": []}
+    for label, cfg in BF16_SHAPES:
+        cand, mbits, feats = bf16_window(cfg, dev)
+        B, d = cfg["B"], cfg["d"]
+        no_edge = mbits.clone()
+        no_edge[0, 0, :] &= ~0x1F                 # rows 0-4 of block 0
+        for stable in (True, False):
+            q, x, v = feats[stable]
+            qb = q.reshape(-1, B, d)
+            for epi in ("none", "l2norm", "relu"):
+                for kind, fn, plain, args in (
+                    ("shared", fb.fused_block_attention_packed_shared,
+                     fb.fused_block_attention_packed_shared_plain,
+                     (qb, x, cand)),
+                    ("separate", fb.fused_block_attention_packed,
+                     fb.fused_block_attention_packed_plain,
+                     (qb, x, v, cand))):
+                    for m, case in ((mbits, ""), (no_edge, ", no-edge rows")):
+                        if m is no_edge and epi != "none":
+                            continue
+                        got = fn(*args, m, epilogue=epi, stable=stable)
+                        want = plain(*args, m, epilogue=epi, stable=stable)
+                        torch.cuda.synchronize()
+                        what = (f"bf16 {kind} {label} stable={stable} "
+                                f"{epi}{case}")
+                        if got.dtype != torch.bfloat16:
+                            raise RuntimeError(f"{what}: out is {got.dtype}")
+                        torch.testing.assert_close(
+                            got, want, **BF16_KERNEL_TOL,
+                            msg=lambda msg: f"{what}: {msg}")
+                        if case and not (got[0, :5] == 0).all():
+                            raise RuntimeError(f"{what}: not exactly 0")
+                        err = float((got.float() - want.float()).abs().max())
+                        errs[kind].append(err)
+                        report["cases"].append(dict(
+                            kernel=f"{kind}[bf16]", case=f"{label}{case}",
+                            epilogue=epi, stable=stable, max_abs_err=err))
+    print(f"kernels #1/#2 bf16 == plain within 2^-7 over "
+          f"{len(errs['shared'])} + {len(errs['separate'])} cases (max |err|"
+          f" {max(errs['shared']):.3g}, {max(errs['separate']):.3g})",
+          flush=True)
+
+    # timed at the roofline's shapes, stable softmax (as the bench row)
+    cfg = BF16_SHAPES[0][1]
+    cand, mbits, feats = bf16_window(cfg, dev)
+    q, x, v = feats[True]
+    n, B, C, d, dv = cfg["n"], cfg["B"], cfg["C"], cfg["d"], cfg["dv"]
+    qb = q.reshape(-1, B, d)
+    nb = qb.shape[0]
+    mask = fb.unpack_emask(mbits, B)
+    edges = int(mask.sum())
+    xg, vg = x[cand.clamp(0, n - 1)], v[cand.clamp(0, n - 1)]
+    rows = []
+    for kind, name, replaces, run, plain, lib in (
+        ("shared", "fused_block_attention_packed_shared[bf16]",
+         "relationalgraphlearning_tpu/ops/pallas_block.py:192",
+         lambda: fb.fused_block_attention_packed_shared(qb, x, cand, mbits),
+         lambda: fb.fused_block_attention_packed_shared_plain(
+             qb, x, cand, mbits),
+         lambda: F.scaled_dot_product_attention(qb, xg, xg, attn_mask=mask,
+                                                scale=1.0)),
+        ("separate", "fused_block_attention_packed[bf16]",
+         "relationalgraphlearning_tpu/ops/pallas_block.py:235",
+         lambda: fb.fused_block_attention_packed(qb, x, v, cand, mbits),
+         lambda: fb.fused_block_attention_packed_plain(qb, x, v, cand,
+                                                       mbits),
+         lambda: F.scaled_dot_product_attention(qb, xg, vg, attn_mask=mask,
+                                                scale=1.0)),
+    ):
+        tables = n * d * 2 + (0 if kind == "shared" else n * dv * 2)
+        nbytes = (qb.numel() * 2 + tables + cand.numel() * 8
+                  + mbits.numel() * 4 + nb * B * dv * 2)
+        # float32 arithmetic on the CUDA cores: the float32 peak
+        ops = edges * (2 * d + 2 * dv + 2)
+        row = timed_row(report, name, replaces,
+                        "fused_block_attention.cu", run, plain, lib, nbytes,
+                        ops, flops, bw, errs[kind],
+                        dict(nb=nb, B=B, C=C, d=d, dv=dv, n=n,
+                             dtype="bfloat16"), cold=True)
+        # the float32 kernel on the same graph and rows, for comparison
+        f32 = [t.float() for t in (qb, x, v)]
+        f32_run = ((lambda: fb.fused_block_attention_packed_shared(
+            f32[0], f32[1], cand, mbits)) if kind == "shared" else
+            (lambda: fb.fused_block_attention_packed(*f32, cand, mbits)))
+        report["kernel_detail"][name].update(
+            edges=edges, f32_ms=device_ms(f32_run),
+            f32_cold_ms=device_ms_cold(f32_run))
+        print(f"  the same in float32: "
+              f"{report['kernel_detail'][name]['f32_ms']:.4f} ms, cold L2 "
+              f"{report['kernel_detail'][name]['f32_cold_ms']:.4f} ms",
+              flush=True)
+        rows.append(row)
+
+    # the FMA kernel of bench_roofline's vpu_peak against its plain version
+    xf = torch.ones(FMA["n"], device=dev)
+    fma = lambda: roofline.fma_chain(xf, FMA["fmas"], FMA["passes"])  # noqa
+    fma_plain = lambda: roofline.fma_chain_plain(  # noqa: E731
+        xf, FMA["fmas"], FMA["passes"])
+    got, want = fma(), fma_plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FMA_TOL,
+                               msg=lambda m: f"fma_chain vs plain: {m}")
+    flops_done = 2 * FMA["fmas"] * FMA["passes"] * FMA["n"]
+    ms = device_ms(fma, reps=20)
+    plain_ms = device_ms(fma_plain, reps=2)
+    bound_ms, bound_by = bound(8 * FMA["n"], flops_done, flops, bw)
+    report["kernel_detail"]["fma_chain"] = dict(
+        shapes=FMA, bytes=8 * FMA["n"], ops=flops_done, cases=1,
+        tflops=flops_done / ms / 1e9)
+    rows.append(dict(
+        name="fma_chain", route="cuda",
+        source="relationalgraphlearning_tpu_torch/csrc/roofline.cu",
+        replaces="bench_roofline.py:65 (vpu_peak: XLA fusion, no "
+                 "pl.pallas_call)",
+        launches=0, max_abs_err=float((got - want).abs().max()), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
+    print(f"kernel fma_chain: {ms:.4f} ms ({flops_done / ms / 1e9:.2f} "
+          f"TFLOP/s; plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}), == plain bit for bit", flush=True)
+    return rows
+
+
+def collector_check(dev, B=1024, steps=16):
+    """bench.py's collection (the linear robot among ORCA humans) graphed
+    against eager from the same carry, bit for bit, as phase 9 holds its
+    collections; no kernel runs there."""
+    cfg = EnvConfig(human_policy="orca")
+    ex = Explorer(CrowdSim(cfg, device=dev),
+                  make_policy("linear", PolicyConfig(), cfg, device=dev), 0.9)
+    carry = ex.init_carry(B, 0)
+    captured.reset_launch_counts()
+    out = {mode: ex.collect(carry, steps, 0, graphed=mode == "graphed")
+           for mode in ("eager", "graphed")}
+    torch.cuda.synchronize()
+    launches = captured.launch_counts()
+    for part, got, want in (("carry", out["graphed"][0], out["eager"][0]),
+                            ("trajectory", out["graphed"][1],
+                             out["eager"][1])):
+        for field, g, w in zip(want._fields, got, want):
+            torch.testing.assert_close(
+                g, w, **REPLAY_TOL,
+                msg=lambda m: f"bench collection: graphed {part}.{field}: "
+                              f"{m}")
+    if any(launches.values()):
+        raise RuntimeError(f"bench.py's collection launched {launches}")
+    return dict(B=B, steps=steps, episodes=int(out["eager"][1].terminal
+                                               .sum()))
+
+
+def _want(kernel=None, n=0):
+    want = {k: 0 for k in captured.launch_counts()}
+    if kernel:
+        want[kernel] = n
+    return want
+
+
+def _expect(what, got, want):
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, want {want}")
+
+
+def bench_phase(dev, report):
+    """The four tools' mains at the reference's sizes, each on the card
+    through its own entry point, their launches checked exactly. Returns
+    the launches on the tools' paths."""
+    t0 = time.perf_counter()
+    shared = "fused_block_attention_packed_shared"
+    col = collector_check(dev)
+    print(f"bench collection: {col['steps']} graphed steps == eager at "
+          f"B={col['B']}, bit for bit ({col['episodes']} episodes ended), "
+          f"no kernel", flush=True)
+    walls = {}
+
+    def tool(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t
+        print(f"{name}: {walls[name]:.1f} s", flush=True)
+        return out
+
+    head = tool("bench", tb.main, BENCH_ARGS)
+    _expect("bench.py's collection", head["collector"]["launches"], _want())
+    for part, got in head["planning"]["launches"].items():
+        _expect(f"planning {part}", got, _want())
+    extra = tool("bench_extra", tbe.main, [])
+    by_metric = {line["metric"]: rec for line, rec in extra if rec}
+    for part, got in by_metric[
+            "planning decisions/s (d=2 MP-RGL in env)"]["launches"].items():
+        _expect(f"bench_extra planning {part}", got, _want())
+    _expect("bench_extra fused-block chain", by_metric[
+        "relation edges/s (block path, fused pallas kernel)"]["launches"],
+        _want(shared, 100))
+    big = by_metric["100k-agent crowd (block+pallas, rebuild every 8)"]
+    _expect("100k R=8 rollout", big["launches"], _want(shared, 64))
+    if big["coverage"] != 1.0:
+        raise RuntimeError(f"100k R=8 rollout coverage {big['coverage']}")
+    res, roof = tool("bench_roofline", tbr.main,
+                     ["--out", str(OUT_DIR / "ROOFLINE.json")])
+    for tag in ("f32", "bf16"):
+        _expect(f"roofline fused block {tag}",
+                roof[f"block_pallas_{tag}"]["launches"], _want(shared, 100))
+    _expect("roofline vpu_peak", roof["vpu_launches"], {"fma_chain": 16})
+    scaling = tool("bench_scaling", bs.main, SCALING_ARGS)
+    mega = tool("bench_scaling --mega", bs.main, SCALING_ARGS + ["--mega"])
+    for line, rec in scaling:
+        want = _want(shared, rec["D"] * 2 * 8 if rec["method"] == "block_halo"
+                     else 0)
+        _expect(line["metric"], rec["launches"], want)
+    for line, rec in mega:
+        _expect(line["metric"], rec["launches"], _want(shared,
+                                                       rec["D"] * 2 * 16))
+    seconds = time.perf_counter() - t0
+    report["bench"] = dict(
+        seconds=seconds, walls=walls, collector_check=col, bench=dict(
+            line=head["line"], eager=head["eager"],
+            trials=head["collector"]["trials"],
+            table_capacity=head["collector"]["table_capacity"]),
+        bench_extra=[line for line, _ in extra],
+        extra_detail={line["metric"]: {k: v for k, v in rec.items()
+                                       if k not in ("final",)}
+                      for line, rec in extra if rec},
+        roofline=res, roofline_detail=roof,
+        scaling=[line for line, _ in scaling + mega],
+        args=dict(bench=BENCH_ARGS, scaling=SCALING_ARGS))
+    print(f"phase 13: {seconds:.1f} s", flush=True)
+    return dict(bf16_shared=roof["block_pallas_bf16"]["launches"][shared],
+                fma=roof["vpu_launches"]["fma_chain"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2780,10 +2835,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = card_line()
+    card = tbe.device_name("cuda")
     name = torch.cuda.get_device_name(0)
     flops, bw = peaks(name)
     print(card, flush=True)
@@ -2817,6 +2873,8 @@ def main() -> int:
     baselines_phase(dev, report)
     partition = partition_phase(dev, flops, bw, report)
     dp_phase(dev, report)
+    kernels += bf16_kernel_phase(dev, flops, bw, report)
+    bench = bench_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does);
     # #2's only path is the halo attention with a value table
     path_launches = {
@@ -2833,7 +2891,12 @@ def main() -> int:
             slice_launches["fused_block_attention"],
         **{f"ab_block_attention[{name}]":
            harness_launches[name]["ab_block_attention"]
-           for name in AB_VARIANTS}}
+           for name in AB_VARIANTS},
+        # bf16: #1 on bench_roofline's fused-block chain row; #2 on no path
+        # (the JAX package runs it in bfloat16 only in its tests)
+        "fused_block_attention_packed_shared[bf16]": bench["bf16_shared"],
+        "fused_block_attention_packed[bf16]": 0,
+        "fma_chain": bench["fma"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
         if row["name"] in partition["k2"]["timing"]:
@@ -2847,6 +2910,8 @@ def main() -> int:
         mprl_profile_phase(dev, report)
 
     report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: {report['seconds']:.1f} s in all", flush=True)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,7 +31,17 @@
 // lanes. Masked slots are never visited, so they add exactly 0 to every sum,
 // as the reference's masked exp does; rows with no edge give exactly 0. All
 // arithmetic is f32 on the CUDA cores (no TF32).
+// The element type T of q, the tables and out is float or __nv_bfloat16
+// (#1/#2 only). In bf16 the body computes what pallas_block.py's kernel
+// computes on bf16 inputs: each element widened to f32 as it is read (exact),
+// the scores and e in f32, the denominator the sum of the f32 e, the value
+// sum over bf16(e) * v (e rounded to nearest even, as `e.astype(v.dtype)`
+// does, :153-154) in f32, the divide and the epilogue in f32, and the output
+// rounded to nearest even (`o_ref.dtype`, :206, :250). A bf16 row of d=64 is
+// 128 B: a lane reads its 4 features as one 8-B load.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -53,8 +63,71 @@ __device__ __forceinline__ float4 load4(const float* r, int f, int n,
                      f + 3 < n ? __ldg(r + f + 3) : 0.f);
 }
 
+// The same four features of a bf16 row, widened to f32 (a bf16 is the top
+// half of the f32 with the same value, so the shift is exact: what
+// __bfloat162float gives); one 8-B load where the row allows it.
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* r, int f, int n,
+                                        bool vec) {
+  if (vec) {
+    if (f >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(r + f));
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+  return make_float4(f < n ? __bfloat162float(r[f]) : 0.f,
+                     f + 1 < n ? __bfloat162float(r[f + 1]) : 0.f,
+                     f + 2 < n ? __bfloat162float(r[f + 2]) : 0.f,
+                     f + 3 < n ? __bfloat162float(r[f + 3]) : 0.f);
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
+}
+
+// Whether four elements of T at p make one vector load or store: 16 B for
+// float, 8 B for bf16.
+template <class T>
+__device__ __forceinline__ bool aligned4x(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0u;
+}
+
+// o[f..f+3] = a, rounded to T (bf16: to nearest even), nothing past n.
+__device__ __forceinline__ void store4(float* o, int f, int n, bool vec,
+                                       float4 a) {
+  if (vec) {
+    if (f < n) *reinterpret_cast<float4*>(o + f) = a;
+  } else {
+    if (f < n) o[f] = a.x;
+    if (f + 1 < n) o[f + 1] = a.y;
+    if (f + 2 < n) o[f + 2] = a.z;
+    if (f + 3 < n) o[f + 3] = a.w;
+  }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, int f, int n,
+                                       bool vec, float4 a) {
+  if (vec) {
+    if (f < n) {
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(o + f);
+      o2[0] = __floats2bfloat162_rn(a.x, a.y);
+      o2[1] = __floats2bfloat162_rn(a.z, a.w);
+    }
+  } else {
+    if (f < n) o[f] = __float2bfloat16_rn(a.x);
+    if (f + 1 < n) o[f + 1] = __float2bfloat16_rn(a.y);
+    if (f + 2 < n) o[f + 2] = __float2bfloat16_rn(a.z);
+    if (f + 3 < n) o[f + 3] = __float2bfloat16_rn(a.w);
+  }
+}
+
+// e as the value product sees it: itself in f32; in bf16 rounded to nearest
+// even and widened again.
+template <class T>
+__device__ __forceinline__ float in_value_type(float e) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16_rn(e));
+  return e;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float p) {
@@ -105,14 +178,14 @@ inline bool row_shape(int w, int* L, int* F4) {
 
 // The rows of table t [*, w] at the slots cc (-1: none, zeros), F4 float4s
 // a lane.
-template <int L, int F4, int N>
+template <int L, int F4, int N, class T>
 __device__ __forceinline__ void edge_rows(const int (&cc)[N], const int* ids,
-                                          const float* __restrict__ t, int w,
+                                          const T* __restrict__ t, int w,
                                           bool vec, int l,
                                           float4 (&r)[N][F4]) {
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    const float* row = t + (size_t)(cc[k] < 0 ? 0 : ids[cc[k]]) * w;
+    const T* row = t + (size_t)(cc[k] < 0 ? 0 : ids[cc[k]]) * w;
 #pragma unroll
     for (int u = 0; u < F4; ++u)
       r[k][u] = cc[k] < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
@@ -123,9 +196,9 @@ __device__ __forceinline__ void edge_rows(const int (&cc)[N], const int* ids,
 // The key rows of a batch of edges and their scores against q, summed over
 // the row's L lanes (a butterfly: every lane ends with the same sum, and
 // every lane of the warp must take part).
-template <int L, int F4, int N>
+template <int L, int F4, int N, class T>
 __device__ __forceinline__ void edge_scores(const int (&cc)[N], const int* ids,
-                                            const float* __restrict__ x, int d,
+                                            const T* __restrict__ x, int d,
                                             bool vx, int l,
                                             const float4 (&qv)[F4],
                                             float4 (&xr)[N][F4],
@@ -145,13 +218,15 @@ __device__ __forceinline__ void edge_scores(const int (&cc)[N], const int* ids,
 
 // The CTA's 16 rows of block blockIdx.x, rows blockIdx.y * 16 .. + 15, over
 // C slots whose table rows id_of(c) gives (before clipping to [0, n-1]).
-// Values are x when SHARED, else v [n, dv]. Launched with kRowsPerCta * L
-// threads and cta_smem_bytes(C) of dynamic shared memory.
-template <int L, int F4, bool SHARED, bool STABLE, int EPI, class IdOf>
+// Values are x when SHARED, else v [n, dv]. T is float or __nv_bfloat16.
+// Launched with kRowsPerCta * L threads and cta_smem_bytes(C) of dynamic
+// shared memory.
+template <int L, int F4, bool SHARED, bool STABLE, int EPI, class IdOf,
+          class T>
 __device__ __forceinline__ void block_rows(
-    IdOf id_of, const float* __restrict__ q, const float* __restrict__ x,
-    const float* __restrict__ v, const int32_t* __restrict__ mbits,
-    float* __restrict__ out, int B, int C, int d, int dv, int n) {
+    IdOf id_of, const T* __restrict__ q, const T* __restrict__ x,
+    const T* __restrict__ v, const int32_t* __restrict__ mbits,
+    T* __restrict__ out, int B, int C, int d, int dv, int n) {
   constexpr int kThreads = kRowsPerCta * L, kWarpsHere = kThreads / 32;
   constexpr int kBatch = kRowLoads / F4;  // edges a row has in flight
   extern __shared__ int cta_smem[];
@@ -164,9 +239,9 @@ __device__ __forceinline__ void block_rows(
   uint32_t* words = reinterpret_cast<uint32_t*>(ids + C);        // [16, nw]
   uint16_t* lst = reinterpret_cast<uint16_t*>(words + kRowsPerCta * nw) +
                   (size_t)g * ls;                                // [C]
-  const bool vx = d % 4 == 0 && aligned16(x) && aligned16(q);
-  const bool vv = dv % 4 == 0 && aligned16(v);
-  const bool vo = dv % 4 == 0 && aligned16(out);
+  const bool vx = d % 4 == 0 && aligned4x(x) && aligned4x(q);
+  const bool vv = dv % 4 == 0 && aligned4x(v);
+  const bool vo = dv % 4 == 0 && aligned4x(out);
 
   // 1. the row's query
   float4 qv[F4];
@@ -263,9 +338,10 @@ __device__ __forceinline__ void block_rows(
       if (cc[k] < 0) continue;
       const float e = STABLE ? expf(p[k] - m) : expf(p[k]);
       den += e;
+      const float ev = in_value_type<T>(e);
 #pragma unroll
       for (int u = 0; u < F4; ++u)
-        axpy4(e, SHARED ? xr[k][u] : vr[k][u], acc[u]);
+        axpy4(ev, SHARED ? xr[k][u] : vr[k][u], acc[u]);
     }
   }
 
@@ -278,19 +354,9 @@ __device__ __forceinline__ void block_rows(
     acc[u].w = acc[u].w / den;
   }
   row_epilogue<EPI, L, F4>(acc);
-  float* o_r = out + row * dv;
+  T* o_r = out + row * dv;
 #pragma unroll
-  for (int u = 0; u < F4; ++u) {
-    const int f = 4 * l + 4 * L * u;
-    if (vo) {
-      if (f < dv) *reinterpret_cast<float4*>(o_r + f) = acc[u];
-    } else {
-      if (f < dv) o_r[f] = acc[u].x;
-      if (f + 1 < dv) o_r[f + 1] = acc[u].y;
-      if (f + 2 < dv) o_r[f + 2] = acc[u].z;
-      if (f + 3 < dv) o_r[f + 3] = acc[u].w;
-    }
-  }
+  for (int u = 0; u < F4; ++u) store4(o_r, 4 * l + 4 * L * u, dv, vo, acc[u]);
 }
 
 // Launch `kern` (a kernel calling block_rows with L lanes a row) over nb

@@ -20,6 +20,9 @@
 // are clipped to n-1, as pallas_block.py:298 does before its gather; their
 // mask bits are never set. Keys and values are x when SHARED (the
 // SparseRGL production case, values == keys == H); else v is a second table.
+// #1/#2 take float32 (fba_launch) or bfloat16 (fba_launch_bf16) q, x, v and
+// give out in the same type; bf16 is read and rounded where the reference
+// casts (block_attention.cuh), every sum in f32.
 // Design (block_attention.cuh): grid (nb, B/16), a CTA of 16 rows of one
 // block, a row a group of 8 lanes (d, dv <= 32) or 16. The CTA writes the
 // C clipped ids and its rows' mask words into shared memory once, and each
@@ -35,6 +38,10 @@
 // reads (cand and the mask words, then 2 batches of 8 edges a pass), so the
 // design keeps every row of the problem in flight at once: 22 KB of shared
 // memory a CTA at C=576, and the slice's 640 CTAs (4.85 an SM) all resident.
+// In bf16 at bench_roofline's chain shapes (nb=32, B=256, C=640, d=64,
+// 131,072 edges) the unique bytes are 3.96 MB (q and the table 1.05 MB each,
+// cand 164 KB, mbits 655 KB, out 1.05 MB), 1.2 us at 3.35 TB/s, against
+// 34 MFLOP of f32 work: bytes again, and the same chain of L2 reads.
 //
 // The r3 kernel (#5) takes pre-gathered tables xg [nb, C, d], vg [nb, C, dv]
 // and a dense f32 mask em [nb, B, C] whose slots with em > 0 are edges
@@ -66,14 +73,14 @@ using namespace rgl;
 
 namespace {
 
-template <int L, int F4, bool SHARED, bool STABLE, int EPI>
+template <class T, int L, int F4, bool SHARED, bool STABLE, int EPI>
 __global__ void __launch_bounds__(kRowsPerCta * L, min_ctas(L, F4))
-fused_block_attention_kernel(const float* __restrict__ q,      // [nb, B, d]
-                             const float* __restrict__ x,      // [n, d]
-                             const float* __restrict__ v,      // [n, dv]
+fused_block_attention_kernel(const T* __restrict__ q,          // [nb, B, d]
+                             const T* __restrict__ x,          // [n, d]
+                             const T* __restrict__ v,          // [n, dv]
                              const int64_t* __restrict__ cand, // [nb, C]
                              const int32_t* __restrict__ mbits,// [nb, B/32, C]
-                             float* __restrict__ out,          // [nb, B, dv]
+                             T* __restrict__ out,              // [nb, B, dv]
                              int B, int C, int d, int dv, int n) {
   const int64_t* cand_b = cand + (size_t)blockIdx.x * C;
   block_rows<L, F4, SHARED, STABLE, EPI>(
@@ -270,45 +277,71 @@ inline size_t dense_smem_bytes(int C, int warps) {
   return sizeof(uint32_t) * 2 * (size_t)warps * (((size_t)C + 31) / 32 + C);
 }
 
-template <bool SHARED, bool STABLE, int EPI>
-int launch_shape(int L, int F4, const float* q, const float* x,
-                 const float* v, const int64_t* cand, const int32_t* mbits,
-                 float* out, int nb, int B, int C, int d, int dv, int n,
-                 size_t smem, cudaStream_t s) {
+template <class T, bool SHARED, bool STABLE, int EPI>
+int launch_shape(int L, int F4, const T* q, const T* x, const T* v,
+                 const int64_t* cand, const int32_t* mbits, T* out, int nb,
+                 int B, int C, int d, int dv, int n, size_t smem,
+                 cudaStream_t s) {
   if (L == 8)
-    return launch_rows(fused_block_attention_kernel<8, 1, SHARED, STABLE, EPI>,
-                       L, nb, B, smem, s, q, x, v, cand, mbits, out, B, C, d,
-                       dv, n);
+    return launch_rows(
+        fused_block_attention_kernel<T, 8, 1, SHARED, STABLE, EPI>, L, nb, B,
+        smem, s, q, x, v, cand, mbits, out, B, C, d, dv, n);
   if (F4 == 1)
-    return launch_rows(fused_block_attention_kernel<16, 1, SHARED, STABLE, EPI>,
-                       L, nb, B, smem, s, q, x, v, cand, mbits, out, B, C, d,
-                       dv, n);
-  return launch_rows(fused_block_attention_kernel<16, 2, SHARED, STABLE, EPI>,
-                     L, nb, B, smem, s, q, x, v, cand, mbits, out, B, C, d, dv,
-                     n);
+    return launch_rows(
+        fused_block_attention_kernel<T, 16, 1, SHARED, STABLE, EPI>, L, nb, B,
+        smem, s, q, x, v, cand, mbits, out, B, C, d, dv, n);
+  return launch_rows(
+      fused_block_attention_kernel<T, 16, 2, SHARED, STABLE, EPI>, L, nb, B,
+      smem, s, q, x, v, cand, mbits, out, B, C, d, dv, n);
 }
 
-template <bool SHARED, bool STABLE>
-int launch_epi(int epilogue, int L, int F4, const float* q, const float* x,
-               const float* v, const int64_t* cand, const int32_t* mbits,
-               float* out, int nb, int B, int C, int d, int dv, int n,
-               size_t smem, cudaStream_t s) {
+template <class T, bool SHARED, bool STABLE>
+int launch_epi(int epilogue, int L, int F4, const T* q, const T* x,
+               const T* v, const int64_t* cand, const int32_t* mbits, T* out,
+               int nb, int B, int C, int d, int dv, int n, size_t smem,
+               cudaStream_t s) {
   switch (epilogue) {
     case kNone:
-      return launch_shape<SHARED, STABLE, kNone>(L, F4, q, x, v, cand, mbits,
-                                                 out, nb, B, C, d, dv, n, smem,
-                                                 s);
+      return launch_shape<T, SHARED, STABLE, kNone>(
+          L, F4, q, x, v, cand, mbits, out, nb, B, C, d, dv, n, smem, s);
     case kL2Norm:
-      return launch_shape<SHARED, STABLE, kL2Norm>(L, F4, q, x, v, cand,
-                                                   mbits, out, nb, B, C, d, dv,
-                                                   n, smem, s);
+      return launch_shape<T, SHARED, STABLE, kL2Norm>(
+          L, F4, q, x, v, cand, mbits, out, nb, B, C, d, dv, n, smem, s);
     case kRelu:
-      return launch_shape<SHARED, STABLE, kRelu>(L, F4, q, x, v, cand, mbits,
-                                                 out, nb, B, C, d, dv, n, smem,
-                                                 s);
+      return launch_shape<T, SHARED, STABLE, kRelu>(
+          L, F4, q, x, v, cand, mbits, out, nb, B, C, d, dv, n, smem, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// #1/#2 in element type T: a row takes 8 or 16 lanes by its width
+// (block_attention.cuh::row_shape).
+template <class T>
+int fba_launch_t(const T* q, const T* x, const T* v, const int64_t* cand,
+                 const int32_t* mbits, T* out, int nb, int B, int C, int d,
+                 int dv, int n, int shared, int stable, int epilogue,
+                 void* stream) {
+  int L = 0, F4 = 0;
+  if (B % 32 != 0 || C < 1 || d < 1 || dv < 1 || (shared && dv != d) ||
+      !row_shape(d > dv ? d : dv, &L, &F4))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = cta_smem_bytes(C);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (shared) {
+    return stable ? launch_epi<T, true, true>(epilogue, L, F4, q, x, x, cand,
+                                              mbits, out, nb, B, C, d, dv, n,
+                                              smem, s)
+                  : launch_epi<T, true, false>(epilogue, L, F4, q, x, x, cand,
+                                               mbits, out, nb, B, C, d, dv, n,
+                                               smem, s);
+  }
+  return stable ? launch_epi<T, false, true>(epilogue, L, F4, q, x, v, cand,
+                                             mbits, out, nb, B, C, d, dv, n,
+                                             smem, s)
+                : launch_epi<T, false, false>(epilogue, L, F4, q, x, v, cand,
+                                              mbits, out, nb, B, C, d, dv, n,
+                                              smem, s);
 }
 
 }  // namespace
@@ -324,26 +357,18 @@ int fba_launch(const float* q, const float* x, const float* v,
                const int64_t* cand, const int32_t* mbits, float* out, int nb,
                int B, int C, int d, int dv, int n, int shared, int stable,
                int epilogue, void* stream) {
-  int L = 0, F4 = 0;
-  if (B % 32 != 0 || C < 1 || d < 1 || dv < 1 || (shared && dv != d) ||
-      !row_shape(d > dv ? d : dv, &L, &F4))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = cta_smem_bytes(C);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shared) {
-    return stable ? launch_epi<true, true>(epilogue, L, F4, q, x, x, cand,
-                                           mbits, out, nb, B, C, d, dv, n,
-                                           smem, s)
-                  : launch_epi<true, false>(epilogue, L, F4, q, x, x, cand,
-                                            mbits, out, nb, B, C, d, dv, n,
-                                            smem, s);
-  }
-  return stable ? launch_epi<false, true>(epilogue, L, F4, q, x, v, cand,
-                                          mbits, out, nb, B, C, d, dv, n, smem,
-                                          s)
-                : launch_epi<false, false>(epilogue, L, F4, q, x, v, cand,
-                                           mbits, out, nb, B, C, d, dv, n,
-                                           smem, s);
+  return fba_launch_t(q, x, v, cand, mbits, out, nb, B, C, d, dv, n, shared,
+                      stable, epilogue, stream);
+}
+
+// The same in bfloat16: q, x, v and out __nv_bfloat16.
+int fba_launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* x,
+                    const __nv_bfloat16* v, const int64_t* cand,
+                    const int32_t* mbits, __nv_bfloat16* out, int nb, int B,
+                    int C, int d, int dv, int n, int shared, int stable,
+                    int epilogue, void* stream) {
+  return fba_launch_t(q, x, v, cand, mbits, out, nb, B, C, d, dv, n, shared,
+                      stable, epilogue, stream);
 }
 
 // The r3 kernel (kernel #5): xg [nb, C, d], vg [nb, C, dv], em [nb, B, C].

@@ -162,17 +162,23 @@ def block_attention(q: Tensor, x: Tensor, v: Tensor, cols: Tensor,
 
     q [n, dq], x [n, dq], v [n, dv], cols [n, K], cand [nb, C] from
     ``block_window``; ``emask`` [nb, B, C] bool from ``block_masks``.
-    Returns out [n, dv]; rows with no valid edge give zero.
+    Returns out [n, dv]; rows with no valid edge give zero. As the
+    reference casts: the scores and the softmax in float32 from bfloat16
+    inputs, the weights cast to v's type, the value product accumulated in
+    float32 (so bfloat16 features give a float32 out); in float32 every
+    cast is the identity.
     """
     n, dq = q.shape
     nb, C = cand.shape
     if emask is None:
         emask = block_masks(cols, cand, mask)
+    acc = torch.promote_types(q.dtype, torch.float32)
     qb = q.reshape(nb, n // nb, dq)
     candc = cand.clamp(0, n - 1)
     xg = x[candc]  # [nb, C, dq]
     vg = v[candc]  # [nb, C, dv]
-    scores = torch.einsum("nbd,ncd->nbc", qb, xg).masked_fill(~emask, _NEG)
+    scores = torch.einsum("nbd,ncd->nbc", qb.to(acc),
+                          xg.to(acc)).masked_fill(~emask, _NEG)
     attn = torch.softmax(scores, dim=-1).masked_fill(~emask, 0.0)
-    out = torch.einsum("nbc,ncd->nbd", attn, vg)
+    out = torch.einsum("nbc,ncd->nbd", attn.to(vg.dtype).to(acc), vg.to(acc))
     return out.reshape(n, -1)

@@ -15,6 +15,13 @@ does; it reads each mask row once into bit words and follows the edges.
 Packed masks are ``int32`` with the reference's bits: torch on the CPU
 cannot shift ``uint32``, so the port keeps the same 32 bits as a signed word.
 
+#1 and #2 take float32 or bfloat16 features (``qb``, ``x`` and ``v`` all of
+one type) and return ``qb``'s type. In bfloat16 they cast where the Pallas
+kernel casts (``pallas_block.py:133-154``): the scores and ``e`` in float32,
+the denominator the sum of the float32 ``e``, the value product over
+``e`` rounded to bfloat16 and accumulated in float32, the divide and the
+epilogue in float32, the output rounded to bfloat16.
+
 Every wrapper runs the plain PyTorch version for CPU tensors and launches the
 kernel for CUDA tensors, or raises. ``launches`` on each kernel wrapper counts
 its kernel launches.
@@ -32,6 +39,8 @@ from relationalgraphlearning_tpu_torch.ops import _build
 
 _NEG = -1e30
 _EPILOGUES = {"none": 0, "l2norm": 1, "relu": 2}
+# #1/#2's entry point by feature type
+_LAUNCH = {torch.float32: "fba_launch", torch.bfloat16: "fba_launch_bf16"}
 _MAX_FEATURES = 128         # kMaxF * 32 in the CUDA source
 ROWS_PER_CTA = 16           # kRowsPerCta in csrc/block_attention.cuh
 
@@ -51,6 +60,8 @@ def _library():
         lib.fba_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.fba_launch.restype = ctypes.c_int
+        lib.fba_launch_bf16.argtypes = lib.fba_launch.argtypes
+        lib.fba_launch_bf16.restype = ctypes.c_int
         lib.fba_dense_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.fba_dense_launch.restype = ctypes.c_int
@@ -89,9 +100,14 @@ def masked_softmax_agg_plain(qb: Tensor, xg: Tensor, vg: Tensor,
                              mbits: Tensor, epilogue: str = "none",
                              stable: bool = True) -> Tensor:
     """Plain transcription of ``pallas_block._masked_softmax_agg`` over
-    pre-gathered tables: qb [nb, B, d], xg [nb, C, d], vg [nb, C, dv]."""
+    pre-gathered tables: qb [nb, B, d], xg [nb, C, d], vg [nb, C, dv] →
+    [nb, B, dv] in qb's type. bfloat16 features are widened to float32 for
+    the scores, ``e`` is rounded to vg's type before the value product, and
+    the output to qb's type after the epilogue, as the kernel casts; in
+    float32 (or float64) every cast is the identity."""
+    acc = torch.promote_types(qb.dtype, torch.float32)
     mask = unpack_emask(mbits, qb.shape[1])
-    scores = torch.einsum("nbd,ncd->nbc", qb, xg)
+    scores = torch.einsum("nbd,ncd->nbc", qb.to(acc), xg.to(acc))
     if stable:
         scores = scores.masked_fill(~mask, _NEG)
         smax = scores.amax(dim=-1, keepdim=True)
@@ -101,13 +117,14 @@ def masked_softmax_agg_plain(qb: Tensor, xg: Tensor, vg: Tensor,
         # exactly, as the reference's bitwise AND zeroes them
         e = torch.exp(scores).masked_fill(~mask, 0.0)
     denom = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-20)
-    out = torch.einsum("nbc,ncd->nbd", e, vg) / denom
+    out = torch.einsum("nbc,ncd->nbd", e.to(vg.dtype).to(acc),
+                       vg.to(acc)) / denom
     if epilogue == "l2norm":
         out = out / torch.clamp(
             torch.sqrt((out * out).sum(dim=-1, keepdim=True)), min=1e-6)
     elif epilogue == "relu":
         out = torch.clamp(out, min=0.0)
-    return out
+    return out.to(qb.dtype)
 
 
 def fused_block_attention_packed_shared_plain(
@@ -131,8 +148,14 @@ def _check(qb: Tensor, x: Tensor, v: Tensor, cand: Tensor, mbits: Tensor,
     nb, B, d = qb.shape
     n, dx = x.shape
     C = cand.shape[-1]
-    _build.check_tensors(qb.device, qb=(qb, torch.float32),
-                         x=(x, torch.float32), v=(v, torch.float32),
+    dt = qb.dtype
+    if dt not in _LAUNCH:
+        raise TypeError(f"qb is {dt}, the kernel takes {list(_LAUNCH)}")
+    for name, t in (("x", x), ("v", v)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} is {t.dtype} and qb {dt}: the kernel "
+                            "takes one feature type")
+    _build.check_tensors(qb.device, qb=(qb, dt), x=(x, dt), v=(v, dt),
                          cand=(cand, torch.int64), mbits=(mbits, torch.int32))
     if B % 32:
         raise ValueError(f"B={B} is not a multiple of 32")
@@ -165,10 +188,10 @@ def _launch(qb, x, v, cand, mbits, shared, epilogue, stable) -> Tensor:
     _check(qb, x, v, cand, mbits, epilogue)
     nb, B, d = qb.shape
     dv = v.shape[1]
-    out = torch.empty((nb, B, dv), dtype=torch.float32, device=qb.device)
+    out = torch.empty((nb, B, dv), dtype=qb.dtype, device=qb.device)
     lib = _library()
     with torch.cuda.device(qb.device):
-        err = lib.fba_launch(
+        err = getattr(lib, _LAUNCH[qb.dtype])(
             qb.data_ptr(), x.data_ptr(), v.data_ptr(), cand.data_ptr(),
             mbits.data_ptr(), out.data_ptr(), nb, B, cand.shape[1], d, dv,
             x.shape[0], int(shared), int(stable), _EPILOGUES[epilogue],
@@ -181,9 +204,9 @@ def _launch(qb, x, v, cand, mbits, shared, epilogue, stable) -> Tensor:
 def fused_block_attention_packed_shared(
         qb: Tensor, x: Tensor, cand: Tensor, mbits: Tensor,
         epilogue: str = "none", stable: bool = True) -> Tensor:
-    """Kernel #1, values ≡ keys: qb [nb, B, d] f32, node table x [n, d] f32,
-    cand [nb, C] int64 (sentinel n), mbits [nb, B//32, C] int32 →
-    [nb, B, d]."""
+    """Kernel #1, values ≡ keys: qb [nb, B, d], node table x [n, d] (both
+    float32 or both bfloat16), cand [nb, C] int64 (sentinel n), mbits
+    [nb, B//32, C] int32 → [nb, B, d] in qb's type."""
     if not qb.is_cuda:
         return fused_block_attention_packed_shared_plain(
             qb, x, cand, mbits, epilogue, stable)

@@ -441,6 +441,13 @@ class Explorer:
         return (RolloutCarry(*(t.clone() for t in w.carry)),
                 Trajectory(*(t.clone() for t in w.traj)))
 
+    def collect_graph(self, batch: int, num_steps: int,
+                      phase_offset: int) -> Optional[Graphed]:
+        """The captured collection step of (batch, num_steps,
+        phase_offset), once ``collect`` has captured it, else None."""
+        return self._collect_graphs.get((batch, num_steps, phase_offset),
+                                        (None, None, None))[1]
+
     # --------------------------------------------------------- target making
     @torch.no_grad()
     def update_memory(self, buffer: rb.ReplayBuffer, traj: Trajectory,

@@ -139,6 +139,67 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(dev):
             qb[:, :48].contiguous(), x, cand, bits[:, :1].contiguous())
 
 
+# #1/#2 in bfloat16: two bfloat16 ulps of the output (rtol=atol=2^-7), as
+# chip_smoke.py's phase 13 holds them: e and then the output are rounded to
+# nearest even on both sides from float32 sums taken in other orders.
+BF16_KERNEL_TOL = dict(rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("epilogue", ["none", "l2norm", "relu"])
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("shared", [True, False])
+def test_cuda_kernel_bf16_matches_plain(dev, shared, stable, epilogue, d):
+    qb, x, v, cand, bits = _problem(dev, unit=not stable, d=d)
+    bf = torch.bfloat16
+    qb, x, v = qb.to(bf), x.to(bf), v.to(bf)
+    if shared:
+        args = (qb, x, cand, bits, epilogue, stable)
+        got = tfb.fused_block_attention_packed_shared(*args)
+        want = tfb.fused_block_attention_packed_shared_plain(*args)
+    else:
+        args = (qb, x, v, cand, bits, epilogue, stable)
+        got = tfb.fused_block_attention_packed(*args)
+        want = tfb.fused_block_attention_packed_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == bf
+    torch.testing.assert_close(got, want, **BF16_KERNEL_TOL)
+    assert (got[0, :5] == 0).all()
+
+
+def test_cuda_kernel_bf16_rejects_a_mix(dev):
+    qb, x, v, cand, bits = _problem(dev)
+    with pytest.raises(TypeError, match="one feature type"):
+        tfb.fused_block_attention_packed(qb.to(torch.bfloat16), x.to(
+            torch.bfloat16), v, cand, bits)
+
+
+def test_cuda_fma_chain_matches_plain(dev):
+    from relationalgraphlearning_tpu_torch.ops import roofline
+    x = torch.ones(1 << 16, device=dev)
+    roofline.reset_launch_counts()
+    got = roofline.fma_chain(x, 128, 8)
+    torch.cuda.synchronize()
+    assert roofline.launch_counts() == {"fma_chain": 1}
+    torch.testing.assert_close(got, roofline.fma_chain_plain(x, 128, 8),
+                               rtol=0, atol=0)
+    assert float(got[0]) == 1 + 1024 * 2.0**-23
+
+
+def test_cuda_bf16_chain_graphed_equals_eager(dev):
+    """The bfloat16 block route (#1, stable, l2norm) as one captured graph
+    replays its eager run bit for bit, 100 launches of #1 in the graph."""
+    cols = trc.crowd_graph(2048, 16, side=50.0, device=dev)
+    h0 = trc.seed_features(2048, 64, device=dev, dtype=torch.bfloat16)
+    prep = trc.prepare("block", cols, 256, 640, stable=True)
+    eager = trc.run(prep, h0, 100)
+    g = trc.runner(prep, h0, 100)
+    assert g.launches["fused_block_attention_packed_shared"] == 100
+    replay = g(h0)
+    assert replay.dtype == torch.bfloat16
+    torch.testing.assert_close(replay, eager, rtol=0, atol=0)
+
+
 def _window_problem(dev, C, d, dv, nb=4, B=64, n=4096, unit=False, seed=11):
     """A random window of C distinct table rows a block and a mask of about
     5 % edges, with: block 0's last 40 slots the sentinel n (repeated, bits

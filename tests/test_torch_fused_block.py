@@ -273,3 +273,107 @@ def test_wide_windows_fit_and_wider_are_refused():
     assert tfb.cta_smem_bytes(2048) <= tbuild.MAX_SMEM_BYTES
     assert 4 * (2048 * 128 + 10 * 2048) > tbuild.MAX_SMEM_BYTES
     assert tfb.cta_smem_bytes(8448) > tbuild.MAX_SMEM_BYTES
+
+
+# ------------------------------------------------------------- bfloat16
+# Two bfloat16 ulps of the output (2^-7 of it; 2^-7 near zero): both sides
+# read the same bfloat16 features exactly, sum in float32 in other orders,
+# and round e and the output to nearest even, so a rounding near a tie may
+# land one ulp apart in e and again in the output.
+BF16_TOL = dict(rtol=2**-7, atol=2**-7)
+
+
+def _bf16_setup():
+    """``tests/test_pallas_block.py::_setup(seed=11, C=384)``: the JAX test's
+    graph and features, as numpy."""
+    import jax
+    n, K, B, C, dq, dv, seed = 1024, 8, 128, 384, 32, 48, 11
+    pos = jax.random.uniform(jax.random.PRNGKey(seed), (n, 2)) * 30
+    pos = pos[jbg.spatial_sort(pos)]
+    cols = jsp.knn_graph(pos, K)
+    cand, cov = jbg.block_window(cols, B, C)
+    emask = jbg.block_masks(cols, cand)
+    ks = jax.random.split(jax.random.PRNGKey(seed + 1), 3)
+    q, x, v = (np.array(jax.random.normal(k, (n, w)))
+               for k, w in zip(ks, (dq, dq, dv)))
+    return q, x, v, np.array(cols), np.array(cand), np.array(emask), \
+        float(cov)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "l2norm", "relu"])
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("shared", [True, False])
+def test_bf16_plain_matches_pallas_kernel(shared, stable, epilogue):
+    q, x, v, cols, cand, emask, cov = _bf16_setup()
+    assert cov == 1.0
+    bf = jnp.bfloat16
+    jv = jnp.asarray(x if shared else v).astype(bf)
+    jx = jnp.asarray(x).astype(bf)
+    want = jpb.block_attention_pallas(
+        jnp.asarray(q).astype(bf), jx, jx if shared else jv,
+        jnp.asarray(cand), jnp.asarray(emask), interpret=True,
+        epilogue=epilogue, stable=stable)
+    assert want.dtype == bf
+    tq, tx, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, x, v))
+    got = tfb.block_attention_fused(
+        tq, tx, tx if shared else tv, torch.from_numpy(cand).long(),
+        torch.from_numpy(emask), epilogue=epilogue, stable=stable)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_bf16_plain_matches_f32_block_path(shared):
+    """As ``tests/test_pallas_block.py:65-76``: the bfloat16 kernel's math
+    against the float32 block path within 0.05."""
+    q, x, v, cols, cand, emask, _ = _bf16_setup()
+    vv = x if shared else v
+    want = jbg.block_attention(jnp.asarray(q), jnp.asarray(x),
+                               jnp.asarray(vv), jnp.asarray(cols),
+                               jnp.asarray(cand), emask=jnp.asarray(emask))
+    tq, tx, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, x, vv))
+    got = tfb.block_attention_fused(tq, tx, tx if shared else tv,
+                                    torch.from_numpy(cand).long(),
+                                    torch.from_numpy(emask))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
+                               rtol=0.05, atol=0.05)
+
+
+def test_bf16_plain_keeps_the_f32_path():
+    """In float32 every added cast is the identity: the plain version gives
+    the same bits as its float32 arithmetic spelled out."""
+    n, B, C = 1024, 128, 256
+    cand, emask, _ = _graph(B=B, C=C, seed=5)
+    cand = np.array(cand)
+    q, x, v = _features(n, 32, 48, 6, unit=False)
+    qb = torch.from_numpy(q).reshape(-1, B, 32)
+    xg = torch.from_numpy(x)[torch.from_numpy(cand).long().clamp(0, n - 1)]
+    vg = torch.from_numpy(v)[torch.from_numpy(cand).long().clamp(0, n - 1)]
+    bits = tfb.pack_emask(torch.from_numpy(emask))
+    mask = tfb.unpack_emask(bits, B)
+    s = torch.einsum("nbd,ncd->nbc", qb, xg).masked_fill(~mask, -1e30)
+    e = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~mask, 0.0)
+    want = torch.einsum("nbc,ncd->nbd", e, vg) / torch.clamp(
+        e.sum(-1, keepdim=True), min=1e-20)
+    got = tfb.masked_softmax_agg_plain(qb, xg, vg, bits)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mix", ["x", "v"])
+def test_kernel_checks_reject_a_dtype_mix(mix):
+    bf, f32 = torch.bfloat16, torch.float32
+    t = {"qb": torch.zeros(1, 32, 32, dtype=bf),
+         "x": torch.zeros(8, 32, dtype=bf), "v": torch.zeros(8, 32, dtype=bf)}
+    t[mix] = t[mix].to(f32)
+    with pytest.raises(TypeError, match="one feature type"):
+        tfb._check(t["qb"], t["x"], t["v"],
+                   torch.zeros(1, 16, dtype=torch.int64),
+                   torch.zeros(1, 1, 16, dtype=torch.int32), "none")
+    with pytest.raises(TypeError, match="kernel takes"):
+        tfb._check(torch.zeros(1, 32, 32, dtype=torch.float16),
+                   torch.zeros(8, 32, dtype=torch.float16),
+                   torch.zeros(8, 32, dtype=torch.float16),
+                   torch.zeros(1, 16, dtype=torch.int64),
+                   torch.zeros(1, 1, 16, dtype=torch.int32), "none")

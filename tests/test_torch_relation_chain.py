@@ -49,7 +49,7 @@ def _jax_chain(route, h, cols):
         bits = jpb.pack_emask(jbg.block_masks(jc, cand))
     elif route == "chunk":
         starts, tail, bits, cov = jcw(jc, B)
-    elif route == "chunk_d32":
+    elif route in ("chunk_d32", "block_dense"):
         cand, cov = jbg.block_window(jc, B, C)
     for _ in range(INNER):
         if route == "gather":
@@ -67,7 +67,7 @@ def _jax_chain(route, h, cols):
         else:
             h = _norm(jbg.block_attention(h, h, h, jc, cand))
     return np.asarray(h), float(cov) if route in (
-        "block", "chunk", "chunk_d32") else 1.0
+        "block", "block_dense", "chunk", "chunk_d32") else 1.0
 
 
 @pytest.mark.parametrize("route", list(trc.ROUTES))
@@ -85,7 +85,7 @@ def test_chain_matches_jax_composition(route):
 
 
 def test_routes_agree_and_chain_is_seeded():
-    """All five routes are one function at coverage 1; the graph and the
+    """All the routes are one function at coverage 1; the graph and the
     features come from ``seed`` alone."""
     cols = trc.crowd_graph(1024, K, side=35.0, seed=4, device="cpu")
     assert torch.equal(cols, trc.crowd_graph(1024, K, side=35.0, seed=4,

@@ -115,7 +115,16 @@ Phases, each of which exits non-zero on failure:
     baselines the port trained from scratch on the card
     (``relationalgraphlearning_tpu_torch/results/<row>_s0``, by
     ``tools/reproduce_quality.py``) run the same way, held to their
-    committed ``eval_test.json`` with the same limits and graphed == eager.
+    committed ``eval_test.json`` with the same limits and graphed == eager,
+    and so do the four MP-RGL runs the port trained on the card in slice
+    14 (``mp_unicycle_anneal_s0``, stage 2 resumed from the converted
+    committed stage 1; ``mp_unicycle_2stage_s0``, both stages;
+    ``mp_unicycle_s0`` and ``mp_w4_s0``, the quality table's rows), each
+    printed with the card's name and power limit. The resume check: stage
+    1's exported state resumed under stage 2's config trains at that
+    config's rate (5e-4) from the checkpoint's Adam step count, one
+    captured RL step equals its eager step bit for bit and the same step
+    on the CPU within rtol 1e-5, atol 1e-6.
     Then the value-only trainer (``VNRLTrainer``) on each learned baseline
     (``sarl``, ``sarl_om``, ``lstm_rl``, ``cadrl`` at one human, ``rgl``):
     one and 8 captured SGD steps against eager ones (SGD and Adam), 64
@@ -334,6 +343,20 @@ BASELINE_TRAIN = (("sarl", "sarl"), ("sarl_om", "sarl"),
 # from scratch on the card lie (tools/reproduce_quality.py, seed 0:
 # <row>_s0), each held to its committed eval_test.json with MPRL_BOUNDS.
 PORT_RESULTS = ROOT / "relationalgraphlearning_tpu_torch" / "results"
+# Phase 10: the MP-RGL runs the port trained on the card (slice 14): the
+# unicycle anneal's stage 2 from the converted committed stage 1, the two
+# stages end to end, and the quality table's mp_unicycle and mp_w4 rows,
+# each held to its own eval_test.json with MPRL_BOUNDS.
+PORT_MPRL_RUNS = ("mp_unicycle_anneal_s0", "mp_unicycle_2stage_s0",
+                  "mp_unicycle_s0", "mp_w4_s0")
+# Phase 10's resume check: the exported state of results/<model>, resumed
+# under stage 2's config, moves at that config's rate from its own Adam
+# step count; the card's step against the CPU's at the trainer tests'
+# tolerance (tests/test_torch_trainer.py).
+RESUME = dict(model="mp_unicycle", step=1_550_000,
+              config=ROOT / "configs" / "icra_benchmark"
+              / "mp_unicycle_anneal.py")
+RESUME_TOL = dict(rtol=1e-5, atol=1e-6)
 # Published dense peaks (NVIDIA data sheets): float32 outside the tensor
 # cores in FLOP/s, device memory in bytes/s. Matched on the card's name;
 # the SXM part is the default.
@@ -1979,11 +2002,89 @@ def query_env_check(dev):
                 wall_s_eager=walls["eager"])
 
 
+def resume_check(dev, card):
+    """Stage 1's exported state (``checkpoints/mp_unicycle_state.npz``)
+    written as the port's ``rl_model`` and resumed under stage 2's config
+    (``train_loop.resume_rl``): the config's optimizer and rate with the
+    checkpoint's moments and step; one captured RL step (TD targets, a
+    minibatch of stage 2's demonstrations) equal to its eager step bit for
+    bit, and within RESUME_TOL of the same step on the CPU -> the report."""
+    config = load_config_module(str(RESUME["config"]))
+    tc = config.train
+    path = str(OUT_DIR / "resume" / "rl_model")
+    checkpoints.write_rl_model(RESUME["model"], path, device=dev)
+    art = train_loop.build(config, "model_predictive_rl", 0, dev)
+    train_loop.resume_rl(art.trainer, path, tc)
+    trainer = art.trainer
+    group = trainer.optimizer.param_groups[0]
+    step_t = trainer.optimizer.state[trainer.params[0]]["step"]
+    misses = []
+    if (trainer.optimizer_name, trainer.learning_rate, group["lr"]) != (
+            tc.optimizer, tc.rl_learning_rate, tc.rl_learning_rate):
+        misses.append(f"{trainer.optimizer_name} at {group['lr']}, the "
+                      f"config's {tc.optimizer} at {tc.rl_learning_rate}")
+    if train_loop.optimizer_step(trainer) != RESUME["step"]:
+        misses.append(f"step {train_loop.optimizer_step(trainer)}")
+    if not (group["capturable"] and step_t.is_cuda):
+        misses.append("Adam is not capturable on the card")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    offset = config.env.sim.train_seed_offset
+    buffer = rb.create(20_000, config.env.sim.human_num, device=dev)
+    carry = art.demonstrator_explorer.init_carry(TRAIN["B"], offset)
+    for _ in range(2):
+        carry, traj = art.demonstrator_explorer.collect(
+            carry, TRAIN["K"], offset)
+        art.demonstrator_explorer.update_memory(buffer, traj, None, True)
+    idx = rb.sample_indices(buffer, gen, (1, tc.batch_size))
+    before = trainer.state_dict()
+    trainer.optimize(buffer, idx, use_td=True, graphed=False)
+    eager = trainer.state_dict()
+    trainer.load_state(before)
+    trainer.optimize(buffer, idx, use_td=True, graphed=True)
+    _state_equal("resumed Adam step: graphed vs eager", eager,
+                 trainer.state_dict())
+    cpu = train_loop.build(config, "model_predictive_rl", 0, "cpu")
+    train_loop.resume_rl(cpu.trainer, path, tc)
+    cpu.trainer.optimize(
+        rb.ReplayBuffer(rb.Transition(*(t.cpu() for t in buffer.data)),
+                        buffer.ptr, buffer.size),
+        idx.cpu(), use_td=True, graphed=False)
+    want = cpu.trainer.state_dict()
+    err = {}
+    for part in ("params", "exp_avg", "exp_avg_sq"):
+        pairs = ([(eager["params"][k], want["params"][k])
+                  for k in want["params"]] if part == "params" else
+                 [(g[part], w[part]) for g, w in zip(
+                     eager["optimizer_state"], want["optimizer_state"])])
+        err[part] = max(float((g.cpu() - w).abs().max()) for g, w in pairs)
+        for g, w in pairs:
+            if not torch.allclose(g.cpu(), w, **RESUME_TOL):
+                misses.append(f"{part}: card vs CPU beyond {RESUME_TOL}")
+                break
+    steps = [float(s["step"]) for s in (eager["optimizer_state"][0],
+                                        want["optimizer_state"][0])]
+    if steps != [RESUME["step"] + 1] * 2:
+        misses.append(f"steps after one step {steps}")
+    if misses:
+        raise RuntimeError(f"resume check: {'; '.join(misses)}")
+    shutil.rmtree(OUT_DIR / "resume")
+    print(f"resume: {RESUME['model']}'s exported state under "
+          f"{RESUME['config'].name}: {tc.optimizer} at rate {group['lr']:g}, "
+          f"step {RESUME['step']} -> {int(steps[0])}; one captured RL step "
+          f"== its eager step bit for bit; card vs CPU max |d| params "
+          f"{err['params']:.3g}, exp_avg {err['exp_avg']:.3g}, exp_avg_sq "
+          f"{err['exp_avg_sq']:.3g} (within rtol {RESUME_TOL['rtol']}, atol "
+          f"{RESUME_TOL['atol']}); {card}", flush=True)
+    return dict(optimizer=tc.optimizer, rate=group["lr"],
+                step_before=RESUME["step"], step_after=int(steps[0]),
+                max_abs_err_vs_cpu=err, graphed_equals_eager=True)
+
+
 def baselines_phase(dev, report):
-    """Slices 9 and 12: the seven evaluated baseline rows and the five the
-    port trained from scratch, each eager and graphed in turns, the
-    env-queried lookahead, and the value-only training of every learned
-    baseline. Kernel counts are zeroed before the phase and read after it:
+    """Slices 9, 12 and 14: the seven evaluated baseline rows, the five the
+    port trained from scratch and slice 14's four MP-RGL runs, each eager
+    and graphed in turns, the env-queried lookahead, the resume check, and
+    the value-only training of every learned baseline. Kernel counts are zeroed before the phase and read after it:
     this path launches none of #1-#7."""
     t0 = time.perf_counter()
     captured.reset_launch_counts()
@@ -2003,6 +2104,18 @@ def baselines_phase(dev, report):
                 "eval_test.json", dev, order, results=PORT_RESULTS,
                 per_case=False))
         query_env = query_env_check(dev)
+        card = tbe.device_name(dev)
+        for i, run in enumerate(PORT_MPRL_RUNS):
+            order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
+            port_runs.append(eval_run(
+                run, run, "model_predictive_rl", {}, "eval_test.json", dev,
+                order, results=PORT_RESULTS, per_case=False))
+            delta = port_runs[-1]["delta"]
+            print(f"slice 14 {run}: held to its eval_test.json (d success "
+                  f"{delta['success_rate']:+.4f}, d collision "
+                  f"{delta['collision_rate']:+.4f}, d nav time "
+                  f"{delta['nav_time']:+.4f} s); {card}", flush=True)
+    resume = resume_check(dev, card)
     train = {model: train_checks(dev, ROOT / "results" / model / "config.py",
                                  policy, model, eager_debug=model == "sarl")
              for model, policy in BASELINE_TRAIN}
@@ -2011,8 +2124,9 @@ def baselines_phase(dev, report):
         raise RuntimeError(f"the baselines' path launched kernels: {launches}")
     seconds = time.perf_counter() - t0
     report["baselines"] = dict(runs=runs, port_trained=port_runs,
-                               query_env=query_env, train=train,
-                               launches=launches, seconds=seconds)
+                               query_env=query_env, resume=resume,
+                               train=train, launches=launches,
+                               seconds=seconds)
     print(f"phase 10: {seconds:.1f} s", flush=True)
 
 

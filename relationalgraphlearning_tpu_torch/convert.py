@@ -160,3 +160,41 @@ def value_estimator_from_flax(tree: Mapping) -> dict:
     _rgl("graph_model.", p["graph_model"], out)
     _mlp("value_network", p["value_network"], out)
     return out
+
+
+def mprl_train_state_from_flax(tree: Mapping, names: list,
+                               learning_rate: float, device="cpu") -> dict:
+    """An MP-RGL ``TrainState`` with Adam's state behind the clip
+    (``training/trainer.py:31-41`` of the JAX package; nested dicts keyed
+    as ``tree_from_flat`` makes them: ``params``, ``target_params``,
+    ``opt_state/1/0/{count,mu,nu}``) -> the ``state_dict`` of the port's
+    trainer, what its checkpoint ``state.pt`` holds (``training/
+    trainer.py``): ``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq``,
+    ``count`` -> ``step``.
+
+    ``names``: the trainer's parameter names in its order (``trainer.names``,
+    the nets' ``named_parameters``), the order of its optimizer state. The
+    rate is not in the tree (optax holds it in the transform), so the
+    caller names the rate the run trained at. Tensors land on ``device``;
+    Adam's ``step`` too when Adam is ``capturable`` there (CUDA), else on
+    the CPU, as ``training/trainer.make_optimizer`` makes it."""
+    device = torch.device(device)
+    adam = tree["opt_state"]["1"]["0"]  # (clip, (adam, ...)): the chain
+
+    def tensors(sub: Mapping) -> dict:
+        return {k: v.to(device) for k, v in
+                mprl_networks_from_flax(sub).items()}
+
+    params, target = tensors(tree["params"]), tensors(tree["target_params"])
+    if sorted(params) != sorted(names):
+        raise ValueError(f"the tree's parameters {sorted(params)} are not "
+                         f"the trainer's {sorted(names)}")
+    mu, nu = tensors(adam["mu"]), tensors(adam["nu"])
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32,
+                        device=device if device.type == "cuda" else "cpu")
+    return {"params": {n: params[n] for n in names},
+            "target_params": {n: target[n] for n in names},
+            "optimizer": "adam", "learning_rate": learning_rate,
+            "optimizer_state": [
+                {"step": step.clone(), "exp_avg": mu[n],
+                 "exp_avg_sq": nu[n]} for n in names]}

@@ -315,8 +315,8 @@ class ParallelTrainer:
     def state_dict(self) -> dict:
         return self.base.state_dict()
 
-    def load_state(self, state: dict) -> None:
-        self.base.load_state(state)
+    def load_state(self, state: dict, keep_optimizer: bool = False) -> None:
+        self.base.load_state(state, keep_optimizer)
         _scatter(self.base, self.ranks, self.model)
         self._graphs = {}
 

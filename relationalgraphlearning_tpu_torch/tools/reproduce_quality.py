@@ -74,12 +74,14 @@ RUNS = [
 ]
 
 # Rows with a run of the port committed under the package's ``results/``
-# (trained with this tool at seed 0). When ``<data_dir>/<name>/<record>``
-# is absent the table reads it, so a partial regeneration never stands in
-# for a committed row.
+# (trained with this tool at seed 0): every row the reference's table
+# retrains itself (the others fall back on its committed runs). When
+# ``<data_dir>/<name>/<record>`` is absent the table reads it, so a partial
+# regeneration never stands in for a committed row.
 COMMITTED_FALLBACK = {
     name: f"relationalgraphlearning_tpu_torch/results/{name}_s0"
-    for name in ("sarl", "sarl_om", "lstm_rl", "cadrl", "rgl")}
+    for name in ("sarl", "sarl_om", "lstm_rl", "cadrl", "rgl",
+                 "mp_unicycle", "mp_w4")}
 
 # The gate on test success, against the reference's committed record: two
 # standard deviations of the reference's own seed spread under the

@@ -18,9 +18,14 @@ FILE = "state.pt"
 
 
 def save(path: str, trainer) -> None:
+    save_state(path, trainer.state_dict())
+
+
+def save_state(path: str, state: dict) -> None:
+    """Write a trainer's ``state_dict`` as the checkpoint ``path``."""
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, FILE + ".tmp")
-    torch.save(trainer.state_dict(), tmp)
+    torch.save(state, tmp)
     os.replace(tmp, os.path.join(path, FILE))
 
 
@@ -30,9 +35,11 @@ def load(path: str, map_location="cpu") -> dict:
                       weights_only=True)
 
 
-def restore(path: str, trainer) -> None:
-    """Load a checkpoint into ``trainer``'s live tensors, in place."""
-    trainer.load_state(load(path))
+def restore(path: str, trainer, keep_optimizer: bool = False) -> None:
+    """Load a checkpoint into ``trainer``'s live tensors, in place
+    (``keep_optimizer``: the trainer's optimizer kind and rate stay, see
+    ``MPRLTrainer.load_state``)."""
+    trainer.load_state(load(path), keep_optimizer)
 
 
 def exists(path: str) -> bool:

@@ -121,6 +121,22 @@ def build(config: Config, policy_name: str, base_seed: int = 0,
     return TrainerArtifacts(policy, trainer, explorer, demo_explorer, env)
 
 
+def resume_rl(trainer, path: str, tc) -> None:
+    """Restore an RL checkpoint into ``trainer`` as the reference resumes
+    one (``train_loop.py:184-188``): the optimizer made from the config
+    (``tc.optimizer`` at ``tc.rl_learning_rate``), then the checkpoint's
+    parameters, target, moments and step count loaded into it. A
+    checkpoint of another optimizer kind is refused."""
+    trainer.set_learning_rate(tc.rl_learning_rate, tc.optimizer)
+    ckpt.restore(path, trainer, keep_optimizer=True)
+
+
+def optimizer_step(trainer) -> int:
+    """The optimizer's step count (Adam's ``step``; 0 for SGD)."""
+    state = trainer.optimizer.state[trainer.params[0]]
+    return int(state["step"]) if "step" in state else 0
+
+
 def train(config: Config, policy_name: str, output_dir: str,
           debug: bool = False, resume: bool = False, seed: int = 0,
           opts: Optional[LoopOptions] = None, device="cuda",
@@ -202,9 +218,11 @@ def train(config: Config, policy_name: str, output_dir: str,
     resumed_rl = False
     t_il = time.perf_counter()
     if resume and ckpt.exists(rl_ckpt):
-        ckpt.restore(rl_ckpt, trainer)  # with the RL optimizer's state
+        resume_rl(trainer, rl_ckpt, tc)
         resumed_rl = True
-        log.info("resumed RL checkpoint from %s", rl_ckpt)
+        log.info("resumed RL checkpoint from %s (%s at rate %g, step %d)",
+                 rl_ckpt, art.trainer.optimizer_name,
+                 art.trainer.learning_rate, optimizer_step(art.trainer))
     elif resume and ckpt.exists(il_ckpt):
         ckpt.restore(il_ckpt, trainer)
         log.info("resumed IL checkpoint from %s", il_ckpt)

@@ -279,10 +279,21 @@ class MPRLTrainer:
                     for p in self.params]}
 
     @torch.no_grad()
-    def load_state(self, state: dict) -> None:
-        """Load a ``state_dict`` into the live tensors in place (the
-        optimizer made anew if its kind or rate differ)."""
-        if (state["optimizer"], state["learning_rate"]) != (
+    def load_state(self, state: dict, keep_optimizer: bool = False) -> None:
+        """Load a ``state_dict`` into the live tensors in place: the
+        parameters, the target, the optimizer's moments and step count.
+
+        By default the optimizer is made anew if the state's kind or rate
+        differ (a snapshot comes back whole). ``keep_optimizer`` keeps the
+        trainer's kind and rate, as the reference restores a checkpoint
+        into an optimizer made from its config (``train_loop.py:184-188``),
+        and refuses a state of another kind, whose moments do not fit."""
+        if keep_optimizer:
+            if state["optimizer"] != self.optimizer_name:
+                raise ValueError(
+                    f"the checkpoint holds {state['optimizer']} state; the "
+                    f"trainer's optimizer is {self.optimizer_name}")
+        elif (state["optimizer"], state["learning_rate"]) != (
                 self.optimizer_name, self.learning_rate):
             self.set_learning_rate(state["learning_rate"],
                                    state["optimizer"])

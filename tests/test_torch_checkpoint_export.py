@@ -14,6 +14,10 @@ CLI does (``training/train_loop.build``, ``trainer.init``,
 - ``relationalgraphlearning_tpu_torch/checkpoints/<model>.npz``: every array
   of ``state.params`` (params only), keyed by its flax path
   (``params/value_graph_model/w_r/dense_0/kernel``, ...);
+- ``relationalgraphlearning_tpu_torch/checkpoints/<model>_state.npz`` for
+  the models of ``STATE_MODELS`` (the start of a resumed run): every array
+  of the whole ``TrainState`` (``params``, ``target_params``, the Adam
+  state ``opt_state/1/0/{count,mu,nu}``), keyed by its path;
 - ``relationalgraphlearning_tpu_torch/checkpoints/<run>_test_reference.npz``
   for each evaluated configuration: the outcome (``OUTCOME_*``), the steps
   of a successful case (-1 otherwise) and the discounted return of each of
@@ -86,6 +90,8 @@ RUNS = {
                   "eval_test_th10.json"),
 }
 PLANNER = ("planning_depth", "planning_width")
+# models whose whole training state is exported (``<model>_state.npz``)
+STATE_MODELS = ("mp_unicycle",)
 
 
 def _jax():
@@ -155,6 +161,22 @@ def flat_params(params) -> dict:
     jax = _jax()
     leaves, _ = jax.tree_util.tree_flatten_with_path(params)
     return {"/".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in leaves}
+
+
+def flat_state(state) -> dict:
+    """The whole ``TrainState`` as {path: numpy array}, the path's parts
+    joined by "/" (``opt_state/1/0/mu/params/...``)."""
+    jax = _jax()
+
+    def part(k):
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                return str(getattr(k, attr))
+        raise TypeError(k)
+
+    leaves, _ = jax.tree_util.tree_flatten_with_path(state)
+    return {"/".join(map(part, path)): np.asarray(leaf)
             for path, leaf in leaves}
 
 
@@ -320,6 +342,9 @@ def main(argv=None) -> int:
             _, _, state = restore(model)
             np.savez(CKPT_DIR / f"{model}.npz", **flat_params(state.params))
             print(f"wrote {model}.npz", flush=True)
+            if model in STATE_MODELS:
+                np.savez(CKPT_DIR / f"{model}_state.npz", **flat_state(state))
+                print(f"wrote {model}_state.npz", flush=True)
     for run in args.runs:
         t0 = time.perf_counter()
         ref = per_case_reference(run)

@@ -11,13 +11,19 @@
   ORCA demonstrator, with MP-RGL at ε = 0 (the committed ``mprl_td``
   weights) and with each one-step baseline at ε = 0 (the committed
   weights of ``sarl``, ``sarl_om``, ``lstm_rl``, ``cadrl`` at its one
-  human, and ``rgl``). Every trajectory field and the carry agree at 1e-5, 1e-4 where
+  human, and ``rgl``); and on the training paths of ``mp_unicycle`` and
+  ``mp_w4``: MP-RGL in ``mp_unicycle``'s env and action space (unicycle,
+  ±π/4, the exported ``mp_unicycle`` weights), the ORCA demonstrator in
+  that env (its actions turned into feasible unicycle ones, as in
+  imitation), and MP-RGL at d=2, w=4 (``mprl_td``'s weights). Every
+  trajectory field and the carry agree at 1e-5, 1e-4 where
   ORCA's LP sets the value (the humans' motion, and the demonstrator's
   actions), as ``test_torch_orca.py`` states; flags, outcomes, step and
   case counters exactly.
 - ``update_memory``'s Monte-Carlo values and ``valid``, and its TD values,
   on the reference's own trajectory fed to both, at 1e-6, with MP-RGL and
-  with CADRL at its one human; what lands in the buffer and its ring
+  with CADRL at its one human, and on the three training paths above (the
+  demonstrator's in imitation); what lands in the buffer and its ring
   pointer.
 - ``count_episodes`` on the same trajectory.
 """
@@ -56,8 +62,8 @@ LP_FIELDS = ("humans", "next_humans", "dmin", "reward", "ep_return")
 LP_ROBOT = ("robot", "action", "next_robot")
 
 
-def _configs(model="mprl_td"):
-    cfg_j, cfg_t = configs(model)
+def _configs(model="mprl_td", mprl=None):
+    cfg_j, cfg_t = configs(model, mprl=mprl)
 
     def short(cfg):
         return dataclasses.replace(cfg, env=dataclasses.replace(
@@ -71,25 +77,38 @@ BASELINES = {"sarl": "sarl", "sarl_om": "sarl", "lstm_rl": "lstm_rl",
              "cadrl": "cadrl", "rgl": "rgl"}
 
 
+# the training paths of mp_unicycle and mp_w4: kind -> (model of the
+# config and weights, planner overrides)
+TRAINING_PATHS = {"mp_unicycle": ("mp_unicycle", {}),
+                  "orca_unicycle": ("mp_unicycle", {}),
+                  "mprl_w4": ("mprl_td", {"planning_width": 4})}
+
+
 def _explorers(kind):
-    cfg_j, cfg_t = _configs(kind if kind in BASELINES else "mprl_td")
+    model, mprl = TRAINING_PATHS.get(
+        kind, (kind if kind in BASELINES else "mprl_td", {}))
+    cfg_j, cfg_t = _configs(model, mprl)
+    # the demonstrator turns its actions into unicycle ones within the
+    # policy's rotation constraint (train_loop.build)
+    rot = dict(rotation_constraint=cfg_t.policy.action_space
+               .rotation_constraint)
     if kind in BASELINES:
         tree = checkpoints.load_flax_tree(kind)
         pol_j = jmake(BASELINES[kind], cfg_j.policy, cfg_j.env)
         params = jax.tree.map(jnp.asarray, tree)
         pol_t = make_policy(BASELINES[kind], cfg_t.policy, cfg_t.env,
                             device="cpu").load_flax(tree)
-    elif kind == "orca":
+    elif kind.startswith("orca"):
         safety = cfg_t.train.orca_safety_space
         pol_j, params = JORCA(cfg_j.policy, cfg_j.env, safety), None
         pol_t = ORCARobotPolicy(cfg_t.policy, cfg_t.env, safety, device="cpu")
     else:
-        pol_j, params, pol_t = policies("mprl_td")
+        pol_j, params, pol_t = policies(model, mprl=mprl)
         pol_j.env_cfg = cfg_j.env
         pol_t.env_cfg = cfg_t.env
-    jex = JExplorer(JCrowdSim(cfg_j.env), pol_j, cfg_j.policy.gamma)
+    jex = JExplorer(JCrowdSim(cfg_j.env), pol_j, cfg_j.policy.gamma, **rot)
     tex = Explorer(CrowdSim(cfg_t.env, device="cpu"), pol_t,
-                   cfg_t.policy.gamma)
+                   cfg_t.policy.gamma, **rot)
     return cfg_t, jex, params, tex
 
 
@@ -120,7 +139,7 @@ def test_case_table_is_the_references_reset():
 
 
 @pytest.mark.parametrize("kind", ["orca", "mprl", "sarl", "sarl_om",
-                                  "lstm_rl", "cadrl", "rgl"])
+                                  "lstm_rl", "cadrl", "rgl", *TRAINING_PATHS])
 def test_collect_with_auto_reset_matches_jax(kind):
     cfg_t, jex, params, tex = _explorers(kind)
     offset = cfg_t.env.sim.train_seed_offset
@@ -136,7 +155,8 @@ def test_collect_with_auto_reset_matches_jax(kind):
         if field in EXACT:
             np.testing.assert_array_equal(got, want, err_msg=field)
         else:
-            lp = field in LP_FIELDS or (kind == "orca" and field in LP_ROBOT)
+            lp = field in LP_FIELDS or (kind.startswith("orca")
+                                        and field in LP_ROBOT)
             np.testing.assert_allclose(got, want, rtol=0,
                                        atol=1e-4 if lp else 1e-5,
                                        err_msg=field)
@@ -163,21 +183,29 @@ def _traj_to_torch(jtraj):
     return Trajectory(*(torch.from_numpy(np.array(a)) for a in jtraj))
 
 
-@pytest.mark.parametrize("kind", ["mprl", "cadrl"])
-@pytest.mark.parametrize("imitation", [True, False])
+MEMORY_CASES = [(True, "mprl"), (True, "cadrl"), (False, "mprl"),
+                (False, "cadrl"), (False, "mp_unicycle"),
+                (True, "orca_unicycle"), (False, "mprl_w4")]
+
+
+@pytest.mark.parametrize("imitation,kind", [
+    pytest.param(i, k, id=f"{i}-{k}") for i, k in MEMORY_CASES])
 def test_update_memory_targets_match_jax(imitation, kind):
     cfg_t, jex, params, tex = _explorers(kind)
+    # imitation reads no value (the demonstrator has none)
     pol_j, pol_t = jex.policy, tex.policy
+    value_j, value_t = ((None, None) if imitation
+                        else (pol_j.value, pol_t.value))
     offset = cfg_t.env.sim.train_seed_offset
     _, jtraj = _jax_collect(jex, params, offset)
     n = cfg_t.env.sim.human_num
     cap = STEPS * B + 4  # the ring wraps on the second push
     jbuf = jrb.push(jrb.create(cap, n), jax.tree.map(
         lambda a: a[:8], jrb.create(8, n).data))
-    jbuf = jex.update_memory(jbuf, jtraj, pol_j.value, params, imitation)
+    jbuf = jex.update_memory(jbuf, jtraj, value_j, params, imitation)
     tbuf = rb.push(rb.create(cap, n, device="cpu"),
                    rb.create(8, n, device="cpu").data)
-    tex.update_memory(tbuf, _traj_to_torch(jtraj), pol_t.value, imitation)
+    tex.update_memory(tbuf, _traj_to_torch(jtraj), value_t, imitation)
     assert (tbuf.ptr, tbuf.size) == (int(jbuf.ptr), int(jbuf.size))
     for field, got, want in zip(rb.Transition._fields, tbuf.data, jbuf.data):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,

@@ -43,7 +43,8 @@ for leaf in ("tools.ab_kernel", "types", "geometry", "checkpoints",
              "runtime.native_orca", "utils.render", "utils.plot",
              "utils.profiling", "tools.reproduce_quality",
              "tools.diag_unicycle", "tools.bench", "tools.bench_extra",
-             "tools.bench_roofline", "tools.bench_scaling", "ops.roofline"):
+             "tools.bench_roofline", "tools.bench_scaling", "ops.roofline",
+             "convert", "checkpoints.__main__"):
     assert "relationalgraphlearning_tpu_torch." + leaf in names, leaf
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -162,3 +162,34 @@ def test_one_row_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(rq, "run", lambda cmd, log: calls.append(cmd) or 0)
     rq.main(["--data_dir", str(data), "--device", "cpu", "--skip_existing"])
     assert calls == []
+
+
+def test_committed_fallback_covers_every_row_the_reference_retrains():
+    """Every trained row without a committed run of the reference (the
+    rows its table retrains: sarl, lstm_rl, cadrl, mp_unicycle, sarl_om,
+    mp_w4) has a run of the port committed, trained by this tool."""
+    ref = _reference()
+    retrained = {r["name"] for r in ref.RUNS
+                 if "config" in r and r["name"] not in ref.COMMITTED_FALLBACK}
+    assert retrained == {"sarl", "lstm_rl", "cadrl", "mp_unicycle",
+                         "sarl_om", "mp_w4"}
+    assert retrained <= set(rq.COMMITTED_FALLBACK)
+    for name in retrained:
+        assert rq.COMMITTED_FALLBACK[name] == f"{PORT}/results/{name}_s0"
+        assert (ROOT / rq.COMMITTED_FALLBACK[name] / "eval_test.json"
+                ).exists(), name
+
+
+def test_table_reads_the_committed_unicycle_and_w4_records(tmp_path):
+    """With nothing regenerated, the table's ``mp_unicycle`` and ``mp_w4``
+    rows are the port's committed records beside the reference's."""
+    data = tmp_path / "data"
+    rq.main(["--table_only", "--only", "mp_unicycle,mp_w4",
+             "--data_dir", str(data)])
+    rows = json.loads((data / "quality_table.json").read_text())
+    for name in ("mp_unicycle", "mp_w4"):
+        path = f"{PORT}/results/{name}_s0/eval_test.json"
+        assert rows[name]["port_path"] == path
+        assert rows[name]["port"] == json.loads((ROOT / path).read_text())
+        assert rows[name]["reference_path"] == f"results/{name}/eval_test.json"
+        assert rows[name]["gate"] in ("pass", "miss")

@@ -12,10 +12,15 @@ from Python; ``Graphed`` captures such a function once with
 The kernel wrappers count their launches in Python, so the counts move while
 a function is captured and never at a replay: ``Graphed.launches`` keeps the
 difference over the capture, the kernel launches one replay holds.
+
+With ``utils.profiling`` on, a capture counts under the name its owner
+gives (``captured.captures.<name>``, ``captured.capture_s.<name>``), and
+the device phases it records are read replay by replay under that name.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Sequence
 
 import torch
@@ -23,6 +28,7 @@ from torch import Tensor
 
 from relationalgraphlearning_tpu_torch.ops import (
     ab_block, fused_block, fused_chunk, fused_gather)
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 _KERNEL_MODULES = (fused_block, fused_gather, fused_chunk, ab_block)
 
@@ -61,10 +67,14 @@ class Graphed:
 
     ``launches``: the kernel launches one replay holds, by kernel. A capture
     that fails raises; nothing falls back to the eager function.
+
+    ``name``: what the capture and the graph's device phases count under
+    (``utils.profiling``).
     """
 
     def __init__(self, fn: Callable, *inputs: Tensor,
-                 state: Sequence[Tensor] = ()):
+                 state: Sequence[Tensor] = (), name: str = "graph"):
+        t0 = time.perf_counter()
         tensors = (*inputs, *state)
         if not tensors or not all(isinstance(t, Tensor) and t.is_cuda
                                   for t in tensors):
@@ -83,10 +93,14 @@ class Graphed:
                 t.copy_(before)
         self.graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(self.graph):
+        with profiling.capturing() as phases, torch.cuda.graph(self.graph):
             self.outputs = fn(*self.inputs)
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
+        self.phases = profiling.PhaseReader(name, phases) if phases else None
+        profiling.count("captured.captures." + name)
+        profiling.count("captured.capture_s." + name,
+                        time.perf_counter() - t0)
 
     def __call__(self, *inputs: Tensor):
         if len(inputs) != len(self.inputs):
@@ -99,5 +113,7 @@ class Graphed:
                                  f"{tuple(static.shape)} {static.dtype}")
             if t is not static:
                 static.copy_(t)
+        if self.phases is not None:
+            self.phases.replayed()
         self.graph.replay()
         return self.outputs

@@ -28,6 +28,7 @@ from relationalgraphlearning_tpu_torch.models.sparse_rgl import SparseValueNet
 from relationalgraphlearning_tpu_torch.ops import block_graph, fused_gather
 from relationalgraphlearning_tpu_torch.ops.fused_block import pack_emask
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 K_GNN = 16
 DT = 0.25
@@ -43,6 +44,7 @@ def initial_crowd(n: int, side: Optional[float] = None, seed: int = 0,
     return pos.to(device)
 
 
+@profiling.spanned("crowd.rebuild")
 def rebuild(pos: Tensor, other: tuple, K: int, backend: str, block_B: int,
             block_C: int, packed: bool):
     """Sort the crowd spatially (block backend) and build the graphs the next
@@ -50,16 +52,20 @@ def rebuild(pos: Tensor, other: tuple, K: int, backend: str, block_B: int,
     Returns (pos, other, cols_gnn, cols_orca, cand, emask, coverage)."""
     use_block = backend == "block"
     if use_block:
-        perm = block_graph.spatial_sort(pos)
-        pos = pos[perm]
-        other = tuple(a[perm] for a in other)
-    cols_gnn = knn_graph_auto(pos, K_GNN)
-    cols_orca = knn_graph_auto(pos, K) if K != K_GNN else cols_gnn
+        with profiling.span("crowd.sort"):
+            perm = block_graph.spatial_sort(pos)
+            pos = pos[perm]
+            other = tuple(a[perm] for a in other)
+    with profiling.span("crowd.knn"):
+        cols_gnn = knn_graph_auto(pos, K_GNN)
+        cols_orca = knn_graph_auto(pos, K) if K != K_GNN else cols_gnn
     if use_block:
-        cand, cov = block_graph.block_window(cols_gnn, block_B, block_C)
-        em = block_graph.block_masks(cols_gnn, cand)
-        if packed:
-            em = pack_emask(em)
+        with profiling.span("crowd.window"):
+            cand, cov = block_graph.block_window(cols_gnn, block_B, block_C)
+        with profiling.span("crowd.masks"):
+            em = block_graph.block_masks(cols_gnn, cand)
+            if packed:
+                em = pack_emask(em)
     else:
         cand = em = None
         cov = torch.ones((), device=pos.device)
@@ -110,17 +116,20 @@ class MegaCrowdRollout:
         cand, em = block if block else (None, None)
         values = []
         for _ in range(self.rebuild_every):
-            to = goals - pos
-            d = torch.linalg.norm(to, dim=-1, keepdim=True)
-            pref = torch.where(d > 1e-3, to / torch.clamp(d, min=1e-9), 0.0)
-            vel = centralized_orca_step_knn(pos, vel, rad, pref, vmax, act,
-                                            self.params, self.K,
-                                            cols=cols_orca)
-            pos = pos + vel * DT
-            states = torch.cat([pos, vel, rad[:, None]], dim=-1)
-            vals = self.net(states, cols_gnn, block_cand=cand,
-                            block_emask=em)
-            values.append(vals.mean())
+            with profiling.device_phase("chunk.orca", pos.device):
+                to = goals - pos
+                d = torch.linalg.norm(to, dim=-1, keepdim=True)
+                pref = torch.where(d > 1e-3, to / torch.clamp(d, min=1e-9),
+                                   0.0)
+                vel = centralized_orca_step_knn(pos, vel, rad, pref, vmax,
+                                                act, self.params, self.K,
+                                                cols=cols_orca)
+                pos = pos + vel * DT
+            with profiling.device_phase("chunk.value_net", pos.device):
+                states = torch.cat([pos, vel, rad[:, None]], dim=-1)
+                vals = self.net(states, cols_gnn, block_cand=cand,
+                                block_emask=em)
+                values.append(vals.mean())
         return pos, vel, torch.stack(values)
 
     @torch.no_grad()
@@ -158,9 +167,11 @@ class MegaCrowdRollout:
                     # no Python: prove each rebuilt graph before it replays
                     fused_gather.check_ids(cols_gnn, n)
                 if self.graph is None:
-                    self.graph = Graphed(self.chunk, *args)
-                pos, vel, vals = self.graph(*args)
-                vals = vals.clone()
+                    self.graph = Graphed(self.chunk, *args,
+                                         name="crowd.chunk")
+                with profiling.span("crowd.replay"):
+                    pos, vel, vals = self.graph(*args)
+                    vals = vals.clone()
             values.append(vals)
         if self.graphed:
             pos, vel = pos.clone(), vel.clone()

@@ -5,7 +5,8 @@ with a plain C interface, loaded with ``ctypes``. The library's name carries
 the hash of the source, of the headers it may include (``csrc/*.cuh``) and
 of the flags, so an edited source builds anew. Libraries go to the
 git-ignored ``_build/`` at first use. ``build_all`` starts one ``nvcc`` per
-source, all at once, and waits for them together.
+source, all at once, and waits for them together (the span ``ops.build``;
+the counters ``ops.builds.compiled`` and ``ops.builds.cached``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -59,6 +62,7 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
+@profiling.spanned("ops.build")
 def build_all(sources) -> dict:
     """Compile every source not yet built, one ``nvcc`` each, in parallel.
     Returns {source name: nvcc's report (registers, shared memory, spills),
@@ -84,6 +88,8 @@ def build_all(sources) -> dict:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
+    profiling.count("ops.builds.compiled", len(procs))
+    profiling.count("ops.builds.cached", len(logs) - len(procs))
     return logs
 
 

@@ -37,6 +37,7 @@ from relationalgraphlearning_tpu_torch.models.mprl_networks import (
 from relationalgraphlearning_tpu_torch.policies.action_space import (
     build_action_group_index, build_action_space)
 from relationalgraphlearning_tpu_torch.policies.base import epsilon_greedy
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 
 def _take(x: Tensor, idx: Tensor, trailing: int) -> Tensor:
@@ -181,7 +182,8 @@ class ModelPredictiveRLPolicy:
                                    self._all_actions(js.robot))
         # V_planning counts the node it is called on (depth 1 is a leaf), so
         # a d-step plan is the root action plus V_planning(s', d)
-        v_next = self.v_planning(nr, nh, self.depth)
+        with profiling.device_phase("plan.v_planning", self.device):
+            v_next = self.v_planning(nr, nh, self.depth)
         return rew + self._gamma_bar(js.robot)[..., None] * v_next
 
     @torch.no_grad()
@@ -191,9 +193,12 @@ class ModelPredictiveRLPolicy:
         """The greedy planning action [..., 2], with ε-exploration
         (``epsilon_greedy``: draws from ``generator`` or given ``draws``)."""
         if self.do_action_clip and self.depth > 1:
-            acts, rew, nr, nh = self._clip_actions(js.robot, js.humans,
-                                                   self.width)
-            v_next = self.v_planning(nr, nh, self.depth)  # see action_values
+            with profiling.device_phase("plan.root_clip", self.device):
+                acts, rew, nr, nh = self._clip_actions(js.robot, js.humans,
+                                                       self.width)
+            with profiling.device_phase("plan.v_planning", self.device):
+                # see action_values
+                v_next = self.v_planning(nr, nh, self.depth)
             returns = rew + self._gamma_bar(js.robot)[..., None] * v_next
             best = torch.argmax(returns, dim=-1)
             greedy = _take(acts, best[..., None], 1)[..., 0, :]

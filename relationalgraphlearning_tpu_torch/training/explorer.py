@@ -44,6 +44,7 @@ from relationalgraphlearning_tpu_torch.envs import scenarios
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim, EnvState
 from relationalgraphlearning_tpu_torch.geometry import holonomic_to_unicycle
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 
 class EvalStats(NamedTuple):
@@ -135,14 +136,17 @@ class CaseTable:
         cap = self.capacity
         if n <= cap:
             return
-        new = np.arange(cap, max(n, 2 * cap, 1024))
-        robot, humans = scenarios.generate_cases(
-            scenarios.case_key(self.base_seed, self.phase_offset, new),
-            self.env.cfg)
-        dev = self.env.device
-        self.robot = torch.cat([self.robot, torch.from_numpy(robot).to(dev)])
-        self.humans = torch.cat([self.humans,
-                                 torch.from_numpy(humans).to(dev)])
+        with profiling.span("explorer.case_table_grow"):
+            new = np.arange(cap, max(n, 2 * cap, 1024))
+            robot, humans = scenarios.generate_cases(
+                scenarios.case_key(self.base_seed, self.phase_offset, new),
+                self.env.cfg)
+            dev = self.env.device
+            self.robot = torch.cat([self.robot,
+                                    torch.from_numpy(robot).to(dev)])
+            self.humans = torch.cat([self.humans,
+                                     torch.from_numpy(humans).to(dev)])
+        profiling.count("explorer.case_rows", new.shape[0])
 
 
 class _CollectWork(NamedTuple):
@@ -207,7 +211,9 @@ class Explorer:
 
     # ------------------------------------------------------------------ eval
     def initial_carry(self, phase_offset: int, case_indices) -> EvalCarry:
-        states, _ = self.env.reset(case_indices, phase_offset, self.base_seed)
+        with profiling.span("explorer.reset"):  # the host's scenario draw
+            states, _ = self.env.reset(case_indices, phase_offset,
+                                       self.base_seed)
         B, dev = states.step.shape[0], states.robot.device
         zeros = torch.zeros(B, device=dev)
         izeros = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -221,24 +227,31 @@ class Explorer:
         tensors in, the next ones out."""
         c = EvalCarry(*carry)
         states = c.states
-        out = self._step(states, self._act(states, epsilon, generator))
-        live = ~c.done
-        gamma_t = torch.pow(self.gamma, c.step.to(torch.float32)
-                            * self.cfg.time_step * c.robot[..., T.VPREF])
-        danger = (live & (out.dmin < self.cfg.reward.discomfort_dist)
-                  & ~out.state.done)
-        return (*out.state,
-                c.ep_return + torch.where(live, gamma_t * out.reward, 0.0),
-                c.danger_steps + danger,
-                c.danger_dmin + torch.where(danger, out.dmin, 0.0),
-                c.total_steps + live)
+        dev = c.robot.device
+        with profiling.device_phase("step.plan", dev):
+            actions = self._act(states, epsilon, generator)
+        with profiling.device_phase("step.env", dev):
+            out = self._step(states, actions)
+        with profiling.device_phase("step.book", dev):
+            live = ~c.done
+            gamma_t = torch.pow(self.gamma, c.step.to(torch.float32)
+                                * self.cfg.time_step * c.robot[..., T.VPREF])
+            danger = (live & (out.dmin < self.cfg.reward.discomfort_dist)
+                      & ~out.state.done)
+            book = (c.ep_return + torch.where(live, gamma_t * out.reward,
+                                              0.0),
+                    c.danger_steps + danger,
+                    c.danger_dmin + torch.where(danger, out.dmin, 0.0),
+                    c.total_steps + live)
+        return (*out.state, *book)
 
     def capture(self, carry: EvalCarry) -> Graphed:
         """The step graph for this many cases: captured on the first call
         (over ``carry``, which it leaves as it is) and kept."""
         B = carry.step.shape[0]
         if B not in self._graphs:
-            self._graphs[B] = Graphed(self.eval_step, *carry)
+            self._graphs[B] = Graphed(self.eval_step, *carry,
+                                      name="explorer.eval_step")
         return self._graphs[B]
 
     def rollout(self, phase_offset: int, case_indices, epsilon: float = 0.0,
@@ -362,39 +375,47 @@ class Explorer:
         (``sharding.ParallelCollect``)."""
         c, row = w.carry, w.t
         states = c.states
-        draws = (w.explore_idx.index_select(0, row)[0],
-                 w.explore_u.index_select(0, row)[0])
-        actions = self._act(states, w.epsilon, draws=draws)
-        out = self._step(states, actions)
-        gamma_t = torch.pow(self.gamma, c.ep_step.to(torch.float32)
-                            * self.cfg.time_step * c.robot[..., T.VPREF])
-        ep_return = c.ep_return + gamma_t * out.reward
-        record = Trajectory(
-            robot=c.robot, humans=T.observable(c.humans), action=actions,
-            reward=out.reward, terminal=out.done, outcome=out.state.outcome,
-            dmin=out.dmin, next_robot=out.state.robot,
-            next_humans=T.observable(out.state.humans), ep_step=c.ep_step,
-            ep_return=ep_return)
-        for dst, src in zip(w.traj, record):
-            dst.index_copy_(0, row, src[None])
-        # a finished env resets to its next case: the reference's reset,
-        # then a select by done (explorer.py:227-244)
-        done = out.done
-        B = done.shape[0]
-        stride = B if stride is None else stride
-        fresh = (table.robot.index_select(0, c.case_counter),
-                 table.humans.index_select(0, c.case_counter),
-                 torch.zeros_like(c.step), torch.zeros_like(c.done),
-                 torch.full_like(c.outcome, T.OUTCOME_NOTHING))
-        new = [torch.where(done.reshape((B,) + (1,) * (old.dim() - 1)), f,
-                           old) for f, old in zip(fresh, out.state)]
-        new += [torch.where(done, c.case_counter + stride, c.case_counter),
-                torch.where(done, 0, c.ep_step + 1),
-                torch.where(done, 0.0, ep_return)]
-        for dst, src in zip(c, new):
-            dst.copy_(src)
-        row.add_(1)
+        dev = c.robot.device
+        with profiling.device_phase("collect.plan", dev):
+            draws = (w.explore_idx.index_select(0, row)[0],
+                     w.explore_u.index_select(0, row)[0])
+            actions = self._act(states, w.epsilon, draws=draws)
+        with profiling.device_phase("collect.env", dev):
+            out = self._step(states, actions)
+        with profiling.device_phase("collect.record", dev):
+            gamma_t = torch.pow(self.gamma, c.ep_step.to(torch.float32)
+                                * self.cfg.time_step
+                                * c.robot[..., T.VPREF])
+            ep_return = c.ep_return + gamma_t * out.reward
+            record = Trajectory(
+                robot=c.robot, humans=T.observable(c.humans),
+                action=actions, reward=out.reward, terminal=out.done,
+                outcome=out.state.outcome, dmin=out.dmin,
+                next_robot=out.state.robot,
+                next_humans=T.observable(out.state.humans),
+                ep_step=c.ep_step, ep_return=ep_return)
+            for dst, src in zip(w.traj, record):
+                dst.index_copy_(0, row, src[None])
+            # a finished env resets to its next case: the reference's
+            # reset, then a select by done (explorer.py:227-244)
+            done = out.done
+            B = done.shape[0]
+            stride = B if stride is None else stride
+            fresh = (table.robot.index_select(0, c.case_counter),
+                     table.humans.index_select(0, c.case_counter),
+                     torch.zeros_like(c.step), torch.zeros_like(c.done),
+                     torch.full_like(c.outcome, T.OUTCOME_NOTHING))
+            new = [torch.where(done.reshape((B,) + (1,) * (old.dim() - 1)),
+                               f, old) for f, old in zip(fresh, out.state)]
+            new += [torch.where(done, c.case_counter + stride,
+                                c.case_counter),
+                    torch.where(done, 0, c.ep_step + 1),
+                    torch.where(done, 0.0, ep_return)]
+            for dst, src in zip(c, new):
+                dst.copy_(src)
+            row.add_(1)
 
+    @profiling.spanned("explorer.collect")
     def collect(self, carry: RolloutCarry, num_steps: int,
                 phase_offset: int, epsilon: float = 0.0,
                 draws: Optional[tuple[Tensor, Tensor]] = None,
@@ -423,7 +444,8 @@ class Explorer:
             if cap != table.capacity:  # first call, or the table grew
                 w = self._work(B, num_steps)
                 graph = Graphed(lambda: self._collect_step(w, table),
-                                state=w.tensors())
+                                state=w.tensors(),
+                                name="explorer.collect_step")
                 self._collect_graphs[key] = (w, graph, table.capacity)
             step: Callable = graph
         else:
@@ -450,6 +472,7 @@ class Explorer:
 
     # --------------------------------------------------------- target making
     @torch.no_grad()
+    @profiling.spanned("explorer.update_memory")
     def update_memory(self, buffer: rb.ReplayBuffer, traj: Trajectory,
                       value_fn: Optional[Callable],
                       imitation_learning: bool) -> rb.ReplayBuffer:
@@ -485,6 +508,7 @@ class Explorer:
             next_humans=flat(traj.next_humans), valid=flat(valid),
             terminal=flat(term)))
 
+    @profiling.spanned("explorer.count_episodes")
     def count_episodes(self, traj: Trajectory) -> dict:
         """Stats of the episodes that ended in ``traj``
         (``explorer.py:294-311``), 0-d tensors."""

@@ -54,6 +54,7 @@ from relationalgraphlearning_tpu_torch.training.explorer import (
 from relationalgraphlearning_tpu_torch.training.metrics import MetricsWriter
 from relationalgraphlearning_tpu_torch.training.trainer import (
     LossAux, MPRLTrainer, VNRLTrainer)
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -292,63 +293,65 @@ def train(config: Config, policy_name: str, output_dir: str,
     best_ckpt = os.path.join(output_dir, "rl_model_best")
     # wall seconds of collection, SGD sweeps and validation; each part ends
     # in a host sync (the episode count, the loss, the metrics)
-    walls = dict(collect=0.0, sgd=0.0, val=0.0)
+    walls = {k: profiling.Stopwatch("rl." + k)
+             for k in ("collect", "sgd", "val")}
     t_loop = time.perf_counter()
     while episodes < tc.rl_train_episodes:
-        t0 = time.perf_counter()
-        frac = min(episodes / tc.epsilon_decay, 1.0)
-        epsilon = tc.epsilon_start + frac * (tc.epsilon_end
-                                             - tc.epsilon_start)
-        carry, stats = collect_and_update(explorer, carry, epsilon, False,
-                                          explorer.draws(gen, K, B))
-        t1 = time.perf_counter()
-        walls["collect"] += t1 - t0
-        ep_inc = int(stats["episodes"])
+        with walls["collect"]:
+            frac = min(episodes / tc.epsilon_decay, 1.0)
+            epsilon = tc.epsilon_start + frac * (tc.epsilon_end
+                                                 - tc.epsilon_start)
+            carry, stats = collect_and_update(explorer, carry, epsilon,
+                                              False,
+                                              explorer.draws(gen, K, B))
+            ep_inc = int(stats["episodes"])
         episodes += ep_inc
 
-        # the reference optimizes train_batches minibatches after every
-        # episode: one sweep owed for each episode this iteration finished
-        opt_debt += ep_inc
-        while opt_debt > 0:
-            aux = trainer.optimize_batches(buffer, gen, tc.train_batches,
-                                           tc.batch_size, graphed=graphed)
-            opt_debt -= 1
-            it += 1
+        with walls["sgd"]:
+            # the reference optimizes train_batches minibatches after every
+            # episode: one sweep owed for each episode this iteration
+            # finished
+            opt_debt += ep_inc
+            while opt_debt > 0:
+                aux = trainer.optimize_batches(buffer, gen, tc.train_batches,
+                                               tc.batch_size,
+                                               graphed=graphed)
+                opt_debt -= 1
+                it += 1
 
-        if episodes - last_target_ep >= tc.target_update_interval:
-            trainer.update_target()
-            last_target_ep = episodes
+            if episodes - last_target_ep >= tc.target_update_interval:
+                trainer.update_target()
+                last_target_ep = episodes
 
-        value_loss, sp_loss = float(aux.value_loss), float(aux.predictor_loss)
-        t0 = time.perf_counter()
-        walls["sgd"] += t0 - t1
+            value_loss = float(aux.value_loss)
+            sp_loss = float(aux.predictor_loss)
         if episodes // tc.evaluation_interval > last_eval_ep // max(
                 tc.evaluation_interval, 1) or last_eval_ep < 0:
-            n_val = min(sim.val_size, opts.eval_envs) if debug \
-                else sim.val_size
-            ev = evaluate(n_val)
-            log.info(
-                "RL ep %d it %d eps %.2f | val success %.2f coll %.2f "
-                "nav %.2fs ret %.3f | vloss %.4f sploss %.4f | %.1fs",
-                episodes, it, epsilon, ev.success_rate, ev.collision_rate,
-                ev.avg_nav_time, ev.avg_return, value_loss, sp_loss,
-                time.perf_counter() - t_loop)
-            writer.write(episodes, {
-                "success_rate": ev.success_rate,
-                "collision_rate": ev.collision_rate,
-                "timeout_rate": ev.timeout_rate,
-                "nav_time": ev.avg_nav_time,
-                "return": ev.avg_return}, prefix="val")
-            last_eval_ep = episodes
-            # the best-on-val snapshot; the discounted return breaks ties of
-            # success toward faster, calmer navigation
-            score = (ev.success_rate, ev.avg_return)
-            if score > best_score:
-                best_score = score
-                save(best_ckpt)
-                log.info("new best val success %.2f → %s", ev.success_rate,
-                         best_ckpt)
-            walls["val"] += time.perf_counter() - t0
+            with walls["val"]:
+                n_val = min(sim.val_size, opts.eval_envs) if debug \
+                    else sim.val_size
+                ev = evaluate(n_val)
+                log.info(
+                    "RL ep %d it %d eps %.2f | val success %.2f coll %.2f "
+                    "nav %.2fs ret %.3f | vloss %.4f sploss %.4f | %.1fs",
+                    episodes, it, epsilon, ev.success_rate,
+                    ev.collision_rate, ev.avg_nav_time, ev.avg_return,
+                    value_loss, sp_loss, time.perf_counter() - t_loop)
+                writer.write(episodes, {
+                    "success_rate": ev.success_rate,
+                    "collision_rate": ev.collision_rate,
+                    "timeout_rate": ev.timeout_rate,
+                    "nav_time": ev.avg_nav_time,
+                    "return": ev.avg_return}, prefix="val")
+                last_eval_ep = episodes
+                # the best-on-val snapshot; the discounted return breaks
+                # ties of success toward faster, calmer navigation
+                score = (ev.success_rate, ev.avg_return)
+                if score > best_score:
+                    best_score = score
+                    save(best_ckpt)
+                    log.info("new best val success %.2f → %s",
+                             ev.success_rate, best_ckpt)
         writer.write(episodes, {
             "value_loss": value_loss, "sp_loss": sp_loss,
             "epsilon": epsilon, "train_success": stats["success_rate"]},
@@ -362,11 +365,11 @@ def train(config: Config, policy_name: str, output_dir: str,
     result.update(rl_wall_s=time.perf_counter() - t_loop, rl_sgd_steps=it
                   * tc.train_batches, value_loss=float(aux.value_loss),
                   sp_loss=float(aux.predictor_loss),
-                  **{f"rl_{k}_s": v for k, v in walls.items()})
+                  **{f"rl_{k}_s": w.seconds for k, w in walls.items()})
     log.info("RL: %d episodes, %d sgd steps in %.1fs: collection %.1fs, "
              "sgd %.1fs, validation %.1fs", episodes, result["rl_sgd_steps"],
-             result["rl_wall_s"], walls["collect"], walls["sgd"],
-             walls["val"])
+             result["rl_wall_s"], walls["collect"].seconds,
+             walls["sgd"].seconds, walls["val"].seconds)
 
     ev = evaluate(min(sim.val_size, 500))
     final = {

@@ -32,6 +32,7 @@ from torch import Tensor
 from relationalgraphlearning_tpu_torch import types as T
 from relationalgraphlearning_tpu_torch.captured import Graphed
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 MAX_GRAD_NORM = 10.0
 
@@ -187,12 +188,17 @@ class MPRLTrainer:
         accumulator runs: one left alive from an earlier eager step keeps
         the stream it was made on, and the backward of a captured step
         would have to wait on that stream, which a capture forbids."""
-        views = {n: p.view_as(p) for n, p in zip(self.names, self.params)}
-        loss, aux = self.loss_fn(batch, update_sp, use_td, views)
-        grads = torch.autograd.grad(loss, list(views.values()),
-                                    allow_unused=True, materialize_grads=True)
-        with torch.no_grad():
-            torch._foreach_copy_([p.grad for p in self.params], grads)
+        dev = self.params[0].device
+        with profiling.device_phase("sgd.forward", dev):
+            views = {n: p.view_as(p)
+                     for n, p in zip(self.names, self.params)}
+            loss, aux = self.loss_fn(batch, update_sp, use_td, views)
+        with profiling.device_phase("sgd.backward", dev):
+            grads = torch.autograd.grad(loss, list(views.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            with torch.no_grad():
+                torch._foreach_copy_([p.grad for p in self.params], grads)
         return LossAux(aux.value_loss.detach(), aux.predictor_loss.detach())
 
     def apply_grads(self) -> None:
@@ -205,14 +211,17 @@ class MPRLTrainer:
         """One optimisation step in place: gradients, the clip, the
         optimizer step; the losses add into ``aux_sum``."""
         aux = self.compute_grads(batch, update_sp, use_td)
-        self.apply_grads()
+        with profiling.device_phase("sgd.optimizer", self.params[0].device):
+            self.apply_grads()
         with torch.no_grad():
             self.aux_sum += torch.stack(aux)
         return aux
 
     def _sgd_step(self, buffer: rb.ReplayBuffer, use_td: bool, idx: Tensor,
                   update_sp: Tensor) -> None:
-        self.train_step(rb.sample(buffer, idx), update_sp, use_td)
+        with profiling.device_phase("sgd.forward", idx.device):  # the gather
+            batch = rb.sample(buffer, idx)
+        self.train_step(batch, update_sp, use_td)
 
     def optimize(self, buffer: rb.ReplayBuffer, idx: Tensor,
                  use_td: bool = False, sp_always: bool = False,
@@ -236,15 +245,17 @@ class MPRLTrainer:
             if held is not buffer:
                 step = Graphed(
                     lambda i, sp: self._sgd_step(buffer, use_td, i, sp),
-                    idx[0], self._sp[True], state=self.state_tensors())
+                    idx[0], self._sp[True], state=self.state_tensors(),
+                    name="trainer.sgd_step")
                 self._graphs[key] = (buffer, step)
         else:
             def step(i, sp):
                 self._sgd_step(buffer, use_td, i, sp)
         self.aux_sum.zero_()
         stride = 1 if sp_always else self.sp_update_stride
-        for i in range(idx.shape[0]):
-            step(idx[i], self._sp[i % stride == 0])
+        with profiling.span("trainer.sweep"):
+            for i in range(idx.shape[0]):
+                step(idx[i], self._sp[i % stride == 0])
         mean = self.aux_sum / idx.shape[0]
         return LossAux(mean[0], mean[1])
 

@@ -13,7 +13,10 @@ rollouts (with the env-queried lookahead too) against eager ones, each
 learned baseline's value-only training step and collection captured
 against eager, the baselines the port trained from scratch replayed
 against eager, and the unicycle breakdown's rollout graphed against eager;
-and
+the
+device phases of ``utils/profiling.py`` read from captured graphs (inside
+each replay's own time, no event node in a graph captured with tracing
+off, the same outputs either way, a recapture counted once); and
 the partitioned paths on 4 ranks run as threads on the card (kernel #1
 through ``partitioned_block_rgl``, #2 through ``block_halo_attention`` with
 a value table, the 600-agent partitioned rollout) against the same ranks on
@@ -37,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from relationalgraphlearning_tpu_torch import checkpoints
+from relationalgraphlearning_tpu_torch import captured, checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as trc
 from relationalgraphlearning_tpu_torch import types as TT
 from relationalgraphlearning_tpu_torch.configs.base import GCNConfig as TGCN
@@ -68,6 +71,7 @@ from relationalgraphlearning_tpu_torch.training import replay_buffer as trb
 from relationalgraphlearning_tpu_torch.training import train_loop as ttl
 from relationalgraphlearning_tpu_torch.training.explorer import (
     EvalCarry, Explorer)
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -1468,3 +1472,127 @@ def test_cuda_parallel_train_step_on_a_batch_graphed_equals_eager(dev):
         assert torch.equal(torch.stack(a), torch.stack(b))
     for p, q in zip(steps["eager"].params, steps["graphed"].params):
         assert torch.equal(p, q)
+
+
+# ----------------------------------------------- profiling's device phases
+def _phased(x):
+    with profiling.device_phase("t.a", x.device):
+        y = torch.tanh(x @ x)
+    with profiling.device_phase("t.b", x.device):
+        y = y @ x
+    return y
+
+
+@pytest.fixture
+def traced():
+    """Tracing on and the registry empty for one test, off after."""
+    profiling.reset()
+    profiling.enable()
+    yield
+    profiling.disable()
+    profiling.reset()
+
+
+def test_cuda_phases_lie_inside_their_replay(dev, traced):
+    """A graph captured with tracing on reads both phases of each of five
+    replays (each read at the next replay or at the snapshot, none
+    skipped, since each replay ends in a sync): positive times whose sum
+    is at most the replay's own, bracketed by two events outside it
+    (timestamps to 1 us)."""
+    x = torch.randn(1024, 1024, device=dev) / 32
+    g = captured.Graphed(_phased, x, name="t.graph")
+    brackets = 0.0
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        g(x)
+        ev[1].record()
+        torch.cuda.synchronize()
+        brackets += ev[0].elapsed_time(ev[1])
+    snap = profiling.snapshot()
+    gr = snap["graphs"]["t.graph"]
+    assert (gr["replays"], gr["read"], gr["skipped"]) == (5, 5, 0)
+    a, b = gr["phases"]["t.a"], gr["phases"]["t.b"]
+    assert a["count"] == b["count"] == 5
+    assert a["ms"] > 0 and b["ms"] > 0
+    assert a["ms"] + b["ms"] <= brackets + 5 * 0.002
+    assert snap["counters"]["captured.captures.t.graph"] == 1
+    assert snap["counters"]["captured.capture_s.t.graph"] > 0
+
+
+def test_cuda_untraced_capture_holds_no_event_node(dev, monkeypatch,
+                                                    tmp_path):
+    """Captured with tracing off, a graph holds no event node (its debug
+    dump names none, where the traced one's does) and gives the traced
+    graph's outputs bit for bit."""
+    real = torch.cuda.CUDAGraph
+
+    def debug_graph():  # kept after capture, so that it can be dumped
+        g = real(keep_graph=True)
+        g.enable_debug_mode()
+        return g
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", debug_graph)
+    x = torch.randn(512, 512, device=dev) / 32
+    assert not profiling.enabled()
+    plain = captured.Graphed(_phased, x, name="t.plain")
+    profiling.enable()
+    try:
+        traced = captured.Graphed(_phased, x, name="t.traced")
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert plain.phases is None and len(traced.phases.phases) == 2
+    assert torch.equal(plain(x).clone(), traced(x).clone())
+    dumps = {}
+    for name, g in (("plain", plain), ("traced", traced)):
+        path = tmp_path / f"{name}.dot"
+        g.graph.debug_dump(str(path))
+        dumps[name] = path.read_text().lower()
+    assert "event" in dumps["traced"]
+    assert "event" not in dumps["plain"]
+
+
+def test_cuda_recapture_counts_once(dev, traced):
+    """The collection graph: captured at the first call, replayed at the
+    second, captured once more when the case table grows; its phases are
+    read."""
+    config, art = _artifacts(dev)
+    expl = art.demonstrator_explorer
+    offset = config.env.sim.train_seed_offset
+    carry = expl.init_carry(16, offset)
+    name = "captured.captures.explorer.collect_step"
+    expl.collect(carry, 8, offset, graphed=True)
+    expl.collect(carry, 8, offset, graphed=True)
+    assert profiling.snapshot()["counters"][name] == 1
+    cap = expl.case_table(offset).capacity
+    carry = carry._replace(case_counter=carry.case_counter + cap)
+    expl.collect(carry, 8, offset, graphed=True)
+    snap = profiling.snapshot()
+    assert expl.case_table(offset).capacity > cap
+    assert snap["counters"][name] == 2
+    assert snap["counters"]["explorer.case_rows"] == \
+        expl.case_table(offset).capacity
+    phases = snap["graphs"]["explorer.collect_step"]["phases"]
+    assert set(phases) == {"collect.plan", "collect.env", "collect.record"}
+    assert all(p["ms"] > 0 for p in phases.values())
+
+
+def test_cuda_traced_evaluation_equals_untraced(dev, traced):
+    """The evaluation step graph captured with tracing on rolls 64 cases
+    as the untraced graph does, bit for bit; the planner's phases nest
+    inside ``step.plan``."""
+    config, _, _, ex_on = _mprl(dev)
+    offset = config.env.sim.test_seed_offset
+    with torch.no_grad():
+        on = ex_on.rollout(offset, range(64))
+        profiling.disable()
+        off = _mprl(dev)[3].rollout(offset, range(64))
+        profiling.enable()
+    for name, a, b in zip(off._fields, off, on):
+        assert torch.equal(a, b), name
+    g = profiling.snapshot()["graphs"]["explorer.eval_step"]
+    ms = {k: v["ms"] / v["count"] for k, v in g["phases"].items()}
+    assert set(ms) == {"step.plan", "plan.root_clip", "plan.v_planning",
+                       "step.env", "step.book"}
+    assert ms["plan.root_clip"] + ms["plan.v_planning"] <= ms["step.plan"]
+    assert g["read"] >= 1 and g["replays"] == 100

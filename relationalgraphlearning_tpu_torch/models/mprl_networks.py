@@ -90,8 +90,17 @@ class MPRLNetworks(nn.Module):
         inputs are data)."""
         next_robot = geometry.propagate_full_state(
             robot, action, self.time_step, self.kinematics)
+        return next_robot, self.predict_humans(robot, humans, detach_graph)
+
+    def predict_humans(self, robot: Tensor, humans: Tensor,
+                       detach_graph: bool = False) -> Tensor:
+        """robot [..., 9], humans [..., N, 5] -> next_humans [..., N, 5].
+
+        The action takes no part: the robot's next state alone depends on
+        it (``next_state``), so a planner predicts the humans once for all
+        of a node's actions."""
         if self.cfg.mprl.linear_state_predictor:
-            return next_robot, propagate_humans_linear(humans, self.time_step)
+            return propagate_humans_linear(humans, self.time_step)
         robot_c, humans_c, rot = self._canon(robot, humans)
         H, _ = self.pred_graph(robot_c, humans_c)
         if detach_graph:
@@ -99,4 +108,4 @@ class MPRLNetworks(nn.Module):
         next_humans = self.human_motion_predictor(H[..., 1:, :])
         if rot is not None:
             next_humans = decanonicalize_humans(next_humans, robot, rot)
-        return next_robot, next_humans
+        return next_humans

@@ -10,9 +10,10 @@ value
 
 has the value estimator at its leaves, the learned dynamics for ŝ' and the
 reward estimate R̂. As in the reference, the tree is evaluated level by
-level: each level runs every branch × candidate action as one batched RGL
+level: each level runs every branch × candidate action as one batched value
 forward, for any leading batch dimensions, with no host sync and no
-data-dependent branch.
+data-dependent branch. The state predictor reads no action, so it runs once
+a branch, and the branch's candidates share its prediction.
 
 Ties: ``jax.lax.top_k`` puts the lower index first among equal values and
 ``jnp.argmax`` takes the first maximum; a stable descending sort and
@@ -26,6 +27,7 @@ from typing import Mapping, Optional
 import torch
 from torch import Tensor
 
+from relationalgraphlearning_tpu_torch import geometry
 from relationalgraphlearning_tpu_torch import types as T
 from relationalgraphlearning_tpu_torch.configs.base import (
     EnvConfig, PolicyConfig)
@@ -101,9 +103,6 @@ class ModelPredictiveRLPolicy:
     def value(self, robot: Tensor, humans: Tensor) -> Tensor:
         return self.networks.value(robot, humans)
 
-    def next_state(self, robot: Tensor, humans: Tensor, action: Tensor):
-        return self.networks.next_state(robot, humans, action)
-
     def attention(self, robot: Tensor, humans: Tensor) -> Tensor:
         """The value graph model's relation matrix [..., N+1, N+1], for
         visualization."""
@@ -121,14 +120,21 @@ class ModelPredictiveRLPolicy:
     def _expand(self, robot: Tensor, humans: Tensor, actions: Tensor):
         """Evaluate ``actions`` [..., A, 2] from robot [..., 9] and humans
         [..., N, 5] -> (reward estimate [..., A], next_robot [..., A, 9],
-        next_humans [..., A, N, 5])."""
+        next_humans [..., A, N, 5]). The humans' prediction reads no action:
+        it runs once for the node and its A children share it (a view)."""
         A = actions.shape[-2]
         robot_b = robot[..., None, :].expand(robot.shape[:-1] + (A, 9))
         humans_b = humans[..., None, :, :].expand(
             humans.shape[:-2] + (A,) + humans.shape[-2:])
         r = estimate_reward(robot_b, humans_b, actions, self.env_cfg)
-        next_robot, next_humans = self.next_state(robot_b, humans_b, actions)
-        return r.reward, next_robot, next_humans
+        next_robot = geometry.propagate_full_state(
+            robot_b, actions, self.env_cfg.time_step, self.kinematics)
+        next_humans = self.networks.predict_humans(robot, humans)
+        nodes = robot.shape[:-1].numel()
+        profiling.count("plan.predictor_states", nodes)
+        profiling.count("plan.predicted_children", nodes * A)
+        return r.reward, next_robot, next_humans[..., None, :, :].expand(
+            humans_b.shape)
 
     def _clip_actions(self, robot: Tensor, humans: Tensor, width: int):
         """The top ``width`` actions by one-step value (``action_clip``) and
@@ -210,7 +216,8 @@ class ModelPredictiveRLPolicy:
 
     def rgl_forwards_per_decision(self) -> int:
         """Six-node RGL forwards one ``predict`` runs for one state, counted
-        from the tree's shapes (value and predictor graph models both)."""
+        from the tree's shapes: the value graph model's for every node, the
+        predictor's once for each node that ``_expand`` expands."""
         A, w, d = self.action_space.shape[0], self.width, self.depth
         pred = 0 if self.cfg.mprl.linear_state_predictor else 1
 
@@ -218,10 +225,9 @@ class ModelPredictiveRLPolicy:
             if depth <= 1:
                 return nodes
             kids = nodes * (w if self.do_action_clip else A)
-            clip = nodes * A * (1 + pred) if self.do_action_clip \
-                else kids * pred
-            return nodes + clip + planning(kids, depth - 1)
+            clip = nodes * A if self.do_action_clip else 0
+            return nodes + clip + nodes * pred + planning(kids, depth - 1)
 
         if self.do_action_clip and d > 1:
-            return A * (1 + pred) + planning(w, d)
-        return A * pred + planning(A, d)
+            return A + pred + planning(w, d)
+        return pred + planning(A, d)

@@ -3,10 +3,11 @@ versions, their wrappers' checks, and their launch counts on the rollout and
 in the A/B harness's chain; the captured CUDA graphs of the chain, the
 harness and both rollouts, each held to its eager run; and the MP-RGL
 evaluation path (batched CrowdSim, planner, ``Explorer.run_cases``) on the
-card against the CPU, its captured step against its eager run, and 32 test
-cases against the JAX package's per-case records; MP-RGL training
-(the captured SGD step and collection step, each held to its eager run
-bit for bit, and a ``debug`` train on the card); and the one-step
+card against the CPU, the planner's shared prediction of the humans
+against the per-action one at B=500, its captured step against its eager
+run, and 32 test cases against the JAX package's per-case records; MP-RGL
+training (the captured SGD step and collection step, each held to its
+eager run bit for bit, and a ``debug`` train on the card); and the one-step
 baselines (CADRL, SARL, SARL with occupancy maps, LSTM-RL, the model-free
 RGL): their action values on the card against the CPU, their captured
 rollouts (with the env-queried lookahead too) against eager ones, each
@@ -34,12 +35,14 @@ since both sides round to bfloat16 with round-to-nearest-even from float32
 sums taken in another order.
 """
 
+import copy
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from per_action_planner import per_action_expand
 from relationalgraphlearning_tpu_torch import captured, checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as trc
 from relationalgraphlearning_tpu_torch import types as TT
@@ -866,6 +869,60 @@ def test_cuda_env_step_and_planner_match_the_cpu(dev, model):
     assert clear.sum() >= 8  # w=8's clipped returns lie close together
     got = pol_g.predict(js_g).cpu()
     assert torch.equal(got[clear], pol_c.predict(js_c)[clear])
+
+
+def test_cuda_shared_prediction_matches_the_per_action_expansion(dev):
+    """At the evaluation's batch, B=500 (its first 500 test cases), on the
+    card: the humans the planner predicts once a node equal ``next_state``
+    on every (node, action) row to 1e-6 relative (atol 1e-6), and over
+    three steps the planner chooses the actions of the one that predicts
+    per action, wherever both keep the same clipped root actions and the
+    top two returns differ by more than 1e-4.
+
+    A node whose float32 prediction, on either side, misses the float64
+    one by more than that 1e-6 is excused from the equality, as a near
+    tie is from the choice: the predictor's trained softmax scores (up to
+    ~2·10³) make a few states' predictions sensitive to float32 rounding,
+    so cuBLAS's tiles for 500 and for 40,500 rows round them apart (one
+    node of 1,500 here, by 3.5e-5; its float32 error on the CPU is
+    1.1e-5). At most 1 % of the nodes may be excused, and each still lies
+    within 1e-4 of float64."""
+    config, env, pol, _ = _mprl(dev)
+    _, _, ref, ex = _mprl(dev)
+    ref._expand = per_action_expand(ref)
+    net64 = copy.deepcopy(pol.networks).double()
+    states = ex.initial_carry(config.env.sim.test_seed_offset,
+                              range(500)).states
+    with torch.no_grad():
+        for _ in range(3):
+            js = TT.JointState(states.robot, TT.observable(states.humans))
+            acts = pol._all_actions(js.robot)
+            got, want = pol._expand(*js, acts), ref._expand(*js, acts)
+            assert torch.equal(got[1], want[1])
+            exact = net64.predict_humans(js.robot.double(),
+                                         js.humans.double())[:, None]
+            well = torch.ones(500, dtype=torch.bool, device=dev)
+            for nh in (got[2], want[2]):
+                well &= torch.isclose(nh.double(), exact, rtol=1e-6,
+                                      atol=1e-6).flatten(1).all(1)
+            torch.testing.assert_close(got[2][well], want[2][well],
+                                       rtol=1e-6, atol=1e-6)
+            assert int((~well).sum()) <= 5
+            torch.testing.assert_close(
+                got[2][~well].double(), exact.expand_as(got[2])[~well],
+                rtol=0, atol=1e-4)
+            clipped, returns = [], []
+            for p in (pol, ref):
+                a, rew, nr, nh = p._clip_actions(*js, p.width)
+                clipped.append(a)
+                returns.append(rew + p._gamma_bar(js.robot)[..., None]
+                               * p.v_planning(nr, nh, p.depth))
+            clear = (clipped[0] == clipped[1]).flatten(1).all(1) \
+                & (_top2_gap(returns[1]) > 1e-4)
+            assert int(clear.sum()) >= 250
+            action = pol.predict(js)
+            assert torch.equal(action[clear], ref.predict(js)[clear])
+            states = env.step(states, action).state
 
 
 def test_cuda_captured_decision_and_step_replays_eager(dev):

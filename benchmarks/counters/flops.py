@@ -58,18 +58,20 @@ def mprl_predict(config: dict) -> int:
 def planner_forwards(config: dict) -> tuple[int, int]:
     """(value forwards, predictor forwards) of one decision: the root's
     top-w clip over all A actions, then V_planning to depth d, each level
-    clipping every node's A children to w."""
+    clipping every node's A children to w. The predictor reads no action,
+    so it runs once for each expanded node (the root and every node above
+    the leaves: 1 + w + … + w^(d−1)) and the node's A children share it."""
     pol = config["policy"]
     a = pol["action_space"]
     A = 1 + a["speed_samples"] * a["rotation_samples"]
     d, w = pol["mprl"]["planning_depth"], pol["mprl"]["planning_width"]
-    values, preds = A, A  # the root's one-step values of every action
+    values, preds = A, 1  # the root's one-step values of every action
     nodes = w
     for depth in range(d, 0, -1):
         values += nodes  # V(s) of each node
         if depth > 1:
             values += nodes * A
-            preds += nodes * A
+            preds += nodes
             nodes *= w
     return values, preds
 

@@ -1,11 +1,12 @@
 """What the drivers share: the port's ``Config`` built from the
-configuration's file, the checkpoint's arrays, the name of each of the
-port's parameters in the checkpoint, the recorder of a timed step's
-arguments and results, and the sample of a run's outputs that the
-reference judges."""
+configuration's file (with what the traffic mix plans differently), the
+checkpoint's arrays, the name of each of the port's parameters in the
+checkpoint, the recorder of a timed step's arguments and results, and the
+sample of a run's outputs that the reference judges."""
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +40,17 @@ def port_config(cfg: dict):
     return base.Config(env=build(base.EnvConfig, cfg["env"]),
                        policy=build(base.PolicyConfig, cfg["policy"]),
                        train=build(base.TrainConfig, cfg["train"]))
+
+
+def planned(cfg: dict, traffic: dict) -> dict:
+    """The configuration as the mix plans it: a copy with the traffic's
+    ``planning_width`` where the mix gives one (the same weights planned
+    wider), else the configuration itself."""
+    if "planning_width" not in traffic:
+        return cfg
+    cfg = copy.deepcopy(cfg)
+    cfg["policy"]["mprl"]["planning_width"] = traffic["planning_width"]
+    return cfg
 
 
 def checkpoint_arrays(cfg: dict) -> dict:

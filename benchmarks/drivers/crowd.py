@@ -77,6 +77,14 @@ def port_state(weights: dict) -> dict:
     return out
 
 
+def tiny(cfg: dict, traffic: dict) -> None:
+    """Cut a configuration and mix in place to a CPU test's size: 512
+    agents in windows of B=64, C=448, 4 steps a call rebuilt every 2."""
+    cfg["crowd"]["agents"] = 512
+    traffic.update(block_B=64, block_C=448, steps_per_call=4,
+                   rebuild_every=2)
+
+
 class Driver:
     def __init__(self, ctx):
         self.ctx, self.cfg, self.traffic = ctx, ctx.config, ctx.traffic
@@ -134,6 +142,7 @@ class Driver:
         self.covs.append(cov)
         n = self.cfg["crowd"]["agents"]
         win.count("agent_steps", n * self.steps)
+        win.count("chunks", self.chunks)
         win.count("model_flops", self.steps * flops.sparse_rgl_step(self.cfg))
         if self.cuda:
             win.count("fba_launches", self.chunks * self.launches.get(

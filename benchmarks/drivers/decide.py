@@ -22,9 +22,18 @@ from benchmarks.drivers.eval import Driver as Eval
 from benchmarks.reference import mprl as ref
 
 
+def tiny(cfg: dict, traffic: dict) -> None:
+    """Cut a configuration and mix in place to a CPU test's size: the
+    states of 3 cases of 10 steps, up to 1,000 decisions judged."""
+    traffic["cases"] = 3
+    cfg["env"]["time_limit"] = 2.5
+    traffic["check"]["decisions"] = 1000
+
+
 class Driver:
     def __init__(self, ctx):
-        self.ctx, self.cfg, self.traffic = ctx, ctx.config, ctx.traffic
+        self.ctx, self.traffic = ctx, ctx.traffic
+        self.cfg = common.planned(ctx.config, ctx.traffic)
         self.latency: list = []
         self.kept: dict = {}
 

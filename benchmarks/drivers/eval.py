@@ -11,6 +11,10 @@ unchanged.
 The reference judges the starting states against its own scenarios
 (exactly), and a seeded sample of the kept live steps' decisions and env
 steps from the state the program was in.
+
+The mix may plan the configuration's weights at another width
+(``planning_width``): the program, the reference and the FLOP count all
+take it.
 """
 
 from __future__ import annotations
@@ -24,10 +28,18 @@ from benchmarks.reference import mprl as ref
 from benchmarks.reference import scenarios
 
 
+def tiny(cfg: dict, traffic: dict) -> None:
+    """Cut a configuration and mix in place to a CPU test's size: 3 cases
+    of 10 steps, 4 states judged."""
+    traffic["cases"] = 3
+    cfg["env"]["time_limit"] = 2.5
+    traffic["check"]["states"] = 4
+
+
 class Driver:
     def __init__(self, ctx):
-        self.ctx = ctx
-        self.cfg, self.traffic = ctx.config, ctx.traffic
+        self.ctx, self.traffic = ctx, ctx.traffic
+        self.cfg = common.planned(ctx.config, ctx.traffic)
 
     def cases(self) -> np.ndarray:
         n = self.traffic["cases"]

@@ -47,6 +47,17 @@ def median_gap(prog: dict, ref: dict) -> float:
     return float(np.median(gaps))
 
 
+def tiny(cfg: dict, traffic: dict) -> None:
+    """Cut a configuration and mix in place to a CPU test's size: 2 envs ×
+    4 steps over 64 cases, a buffer of 16 from a 1-s episode, 2 minibatches
+    a sweep; one iteration, 3 transitions and 1 sweep judged."""
+    traffic.update(train_envs=2, collect_steps=4, case_table=64)
+    traffic["check"].update(iterations=1, transitions=3, sweeps=1)
+    cfg["buffer_fill"] = 16
+    cfg["env"]["time_limit"] = 1.0  # the window's call ends episodes
+    cfg["train"].update(train_batches=2, capacity=1000)
+
+
 class _SweepRecorder:
     """The SGD step as ``optimize_batches`` calls it, keeping the state
     around the first step of the ``pick``-th sweep (the program's own

@@ -11,8 +11,14 @@ in a file of its own, found by the name ``BENCHMARK.json`` gives it:
 - ``metrics/<metric>.py``: a reader ``read(obs) -> float | None`` of one
   per-layer metric from the traced run's ``Observations``.
 
-So a cell, a configuration or a metric is added as new files and new
-entries, and no file here changes.
+A driver module may give ``tiny(cfg, traffic)``, its cut to a CPU test's
+size (``tests/tiny.py``). So a cell, a configuration or a metric is added
+as new files and new entries, and no file here changes.
+
+A traced run (``--trace 1``) also switches on the port's own spans,
+counters and device phases (``utils/profiling.py``) and hands the window's
+snapshot of them to the readers as ``obs.program``; an untraced run, which
+gives every end-to-end number, never touches them.
 """
 
 from __future__ import annotations
@@ -120,8 +126,9 @@ class Context:
 class Observations:
     """What the per-layer readers read: host spans (seconds, by name),
     counters, other per-call samples (by name), the window's length and
-    calls, and the traced window's ``TraceSummary`` (None when nothing was
-    traced), beside the cell's configuration and traffic mix."""
+    calls, the traced window's ``TraceSummary`` and the port's own spans,
+    counters and device phases over the window (each None in an untraced
+    run), beside the cell's configuration and traffic mix."""
 
     def __init__(self, config: Optional[dict] = None,
                  traffic: Optional[dict] = None, traced: bool = False):
@@ -133,6 +140,7 @@ class Observations:
         self.window_s = 0.0
         self.calls = 0
         self.trace = None
+        self.program = None  # the port's profiling.snapshot() of the window
 
 
 class Window:
@@ -171,12 +179,33 @@ class Window:
             self.tracer.tick()
 
 
-def run_window(driver, seconds: float, obs: Observations
+def set_up(driver, traffic: dict, traced: bool):
+    """``driver.setup()`` -> the port's profiling module in a traced run
+    (switched on), else None. It is switched on after set-up, so that the
+    graphs set-up captures hold the same nodes as in an untraced run, or
+    before it where the mix asks for device phases (``"phases": true``),
+    which a graph records only when it is captured with the switch on."""
+    program = None
+    if traced:
+        from relationalgraphlearning_tpu_torch.utils import profiling
+        program = profiling
+        if traffic.get("phases"):
+            program.enable()
+    driver.setup()
+    if program is not None:
+        program.enable()
+    return program
+
+
+def run_window(driver, seconds: float, obs: Observations, program=None
                ) -> tuple[float, float]:
     """Calls ``driver.call(window)`` until ``seconds`` have passed (the call
     that crosses the end completes; each ends in a sync) -> (start, end)
-    on the host clock."""
+    on the host clock. ``program``: the port's profiling module, emptied
+    before the window and read into ``obs.program`` after it."""
     win = Window(obs)
+    if program is not None:
+        program.reset()
     t0 = time.perf_counter()
     while True:
         driver.call(win)
@@ -185,13 +214,16 @@ def run_window(driver, seconds: float, obs: Observations
             break
     t1 = time.perf_counter()
     obs.window_s = t1 - t0
+    if program is not None:
+        obs.program = program.snapshot()
     return t0, t1
 
 
-def run_traced(driver, tracer, obs: Observations) -> None:
+def run_traced(driver, tracer, obs: Observations, program=None) -> None:
     """After the window: further calls under the profiler until its budget
     has passed (closing at a call's boundary) -> ``obs.trace``, and the
-    calls it covered in ``obs.counters["traced_calls"]``."""
+    calls it covered in ``obs.counters["traced_calls"]``. The port's spans
+    (``program``'s) name idle gaps beside the driver's own."""
     tobs = Observations(obs.config, obs.traffic)
     win = Window(tobs, tracer)
     tracer.start()
@@ -200,7 +232,10 @@ def run_traced(driver, tracer, obs: Observations) -> None:
         tobs.calls += 1
         win.boundary()
     obs.counters["traced_calls"] = tobs.calls
-    obs.trace = tracer.summary(set(tobs.spans))
+    names = set(tobs.spans)
+    if program is not None:
+        names |= set(program.snapshot()["spans"])
+    obs.trace = tracer.summary(names)
 
 
 # ------------------------------------------------------------------- checks

@@ -300,7 +300,9 @@ class Planner:
         float32 rounding may order either way, so every clip set such a
         tie allows is tried and the smallest gap counts. An action that no
         such clip keeps, or that is not one of the 81, is no decision of
-        the planner: it reads ``NOT_PLANNED``."""
+        the planner: it reads ``NOT_PLANNED``. The band is one test, in
+        float64: each of the top w is in it or kept for sure, so some clip
+        is always tried."""
         out = []
         match = (self.actions[None] == acts[:, None]).all(-1)  # [S, A]
         for s in range(v1.shape[0]):
@@ -309,13 +311,14 @@ class Planner:
                 out.append(NOT_PLANNED)
                 continue
             a = int(hit[0])
-            order = torch.sort(v1[s], descending=True, stable=True).indices
+            order = torch.sort(v1[s], descending=True,
+                               stable=True).indices.tolist()
+            vals = v1[s].double().tolist()
             w = self.width
-            edge = float(v1[s, order[w - 1]])
+            edge = vals[order[w - 1]]
             band = tie * max(1.0, abs(edge))
-            sure = [int(i) for i in order[:w] if v1[s, i] > edge + band]
-            near = [int(i) for i in order if abs(float(v1[s, i]) - edge)
-                    <= band]
+            near = [i for i in order if abs(vals[i] - edge) <= band]
+            sure = [i for i in order[:w] if i not in near]
             best = NOT_PLANNED
             for rest in itertools.combinations(near, w - len(sure)):
                 clip = sure + list(rest)

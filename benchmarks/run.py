@@ -10,12 +10,13 @@ warming every shape the traffic uses, capturing its graphs) counts in
 window then calls the cell's driver until ``--seconds`` have passed. With
 ``--trace 0`` the line holds the cell's end-to-end metrics; with
 ``--trace 1`` the line holds the per-layer metrics (the window's spans and
-counters), and the profiler records a short stretch of further calls for
-the device's busy time, the per-kernel metrics and a breakdown. After
-the window the peak memory is read, the program's state freed, and the
-plain reference judges a seeded sample of what the timed path produced:
-each compared number is printed beside its limit, as the last lines on
-standard error and under ``checks``, the result's last key.
+counters, the harness's and the port's own), and the profiler records a
+short stretch of further calls for the device's busy time, the per-kernel
+metrics and a breakdown. After the window the peak memory is read, the
+program's state freed, and the plain reference judges a seeded sample of
+what the timed path produced: each compared number is printed beside its
+limit, as the last lines on standard error and under ``checks``, the
+result's last key.
 """
 
 import time
@@ -60,14 +61,15 @@ def main(argv=None) -> int:
                           harness.load_traffic(cell), args.seed,
                           torch.device("cuda", 0))
     driver = harness.load_driver(ctx.traffic["driver"]).Driver(ctx)
-    driver.setup()
+    program = harness.set_up(driver, ctx.traffic, bool(args.trace))
     torch.cuda.synchronize()
 
     obs = harness.Observations(ctx.config, ctx.traffic, bool(args.trace))
     setup_s = time.perf_counter() - T_START
-    harness.run_window(driver, args.seconds, obs)
+    harness.run_window(driver, args.seconds, obs, program)
     if args.trace:
-        harness.run_traced(driver, Tracer(ctx.traffic["trace_seconds"]), obs)
+        harness.run_traced(driver, Tracer(ctx.traffic["trace_seconds"]), obs,
+                           program)
     peak = torch.cuda.max_memory_allocated()
 
     e2e, layer = harness.cell_metrics(bench, args.workload)

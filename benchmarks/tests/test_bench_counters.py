@@ -1,9 +1,12 @@
-"""The FLOP and byte counters against counts worked by hand."""
+"""The FLOP and byte counters against counts worked by hand, and the
+planner's count against the port's own counters."""
 
 import pytest
+import torch
 
 from benchmarks import harness
 from benchmarks.counters import fba, flops
+from benchmarks.drivers import common
 from benchmarks.counters.peaks import F32_FLOPS, HBM_BYTES
 
 BENCH = harness.load_benchmark()
@@ -31,12 +34,52 @@ def test_the_value_and_predictor_heads():
     assert flops.mprl_predict(cfg) == rgl + 5 * 2 * (32 * 64 + 64 * 5)
 
 
+def planned(width):
+    return common.planned(config("mp_rgl"), {"planning_width": width})
+
+
 def test_a_decisions_forwards():
-    # root: 81 actions' one-step values (81 V, 81 predictions); V_planning
-    # at depth 2 on the 2 kept: 2 V, 2·81 V and 2·81 predictions; depth 1
-    # on the 4 grandchildren: 4 V
+    # root: 81 actions' one-step values (81 V, one prediction the 81
+    # share); V_planning at depth 2 on the w kept: w V, w·81 V and w
+    # predictions; depth 1 on the w² grandchildren: w² V
     assert flops.planner_forwards(config("mp_rgl")) == (81 + 2 + 162 + 4,
-                                                       81 + 162)
+                                                       1 + 2)
+    assert flops.planner_forwards(planned(4)) == (81 + 4 + 324 + 16, 1 + 4)
+    assert config("mp_rgl")["policy"]["mprl"]["planning_width"] == 2
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_the_predictor_count_is_the_programs(width):
+    """The port's own counters over ``predict`` on B seeded states: the
+    predictor's rows a state are the counted predictor forwards, and each
+    row serves all 81 actions."""
+    from relationalgraphlearning_tpu_torch import types as T
+    from relationalgraphlearning_tpu_torch.policies.factory import (
+        make_policy)
+    from relationalgraphlearning_tpu_torch.utils import profiling
+    cfg = planned(width)
+    port = common.port_config(cfg)
+    torch.manual_seed(width)
+    policy = make_policy("model_predictive_rl", port.policy, port.env,
+                         device="cpu")
+    B = 3
+    gen = torch.Generator().manual_seed(97)
+    robot = torch.rand((B, 9), generator=gen) * 4 - 2
+    robot[:, 4], robot[:, 7] = 0.3, 1.0  # radius, v_pref
+    humans = torch.rand((B, 5, 5), generator=gen) * 4 - 2
+    humans[..., 4] = 0.3
+    profiling.reset()
+    profiling.enable()
+    try:
+        policy.predict(T.JointState(robot, humans))
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    _, preds = flops.planner_forwards(cfg)
+    assert counters["plan.predictor_states"] == B * preds
+    assert counters["plan.predicted_children"] == \
+        81 * counters["plan.predictor_states"]
 
 
 def test_an_sgd_step():

@@ -62,11 +62,16 @@ assert not found, found
 
 
 def test_the_reference_alone_loads_nothing_of_the_program():
+    """Every module of ``reference/``, found by its file, in a fresh
+    process."""
+    mods = sorted(p.stem for p in (BENCH / "reference").glob("*.py")
+                  if p.stem != "__init__")
+    assert {"mprl", "crowd", "scenarios", "orca"} <= set(mods)
     code = f"""
-import sys
+import importlib, sys
 sys.path.insert(0, {str(BENCH.parent)!r})
-import benchmarks.reference.mprl, benchmarks.reference.crowd
-import benchmarks.reference.scenarios
+for m in {mods!r}:
+    importlib.import_module("benchmarks.reference." + m)
 assert not [n for n in sys.modules if n.split(".")[0] == {PORT!r}]
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

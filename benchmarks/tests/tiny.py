@@ -1,5 +1,6 @@
 """A cell's driver at a size a CPU test holds: the same code, with the
-configuration and traffic mix cut here only."""
+configuration and traffic mix cut by the driver's own ``tiny(cfg,
+traffic)``; a driver without one runs at the cell's size."""
 
 from __future__ import annotations
 
@@ -15,31 +16,27 @@ def context(cell: str, seed: int = 2 ** 31 + 977, device="cpu"):
     c, entry = harness.find_cell(bench, cell)
     cfg = copy.deepcopy(harness.load_config(entry))
     tr = copy.deepcopy(harness.load_traffic(c))
-    if tr["driver"] == "train":
-        tr.update(train_envs=2, collect_steps=4, case_table=64)
-        tr["check"].update(iterations=1, transitions=3, sweeps=1)
-        cfg["buffer_fill"] = 16
-        cfg["env"]["time_limit"] = 1.0  # the window's call ends episodes
-        cfg["train"].update(train_batches=2, capacity=1000)
-    elif tr["driver"] in ("eval", "decide"):
-        tr["cases"] = 3
-        cfg["env"]["time_limit"] = 2.5
-        tr["check"].update(states=4, decisions=1000)
-    else:
-        cfg["crowd"]["agents"] = 512
-        tr.update(block_B=64, block_C=448, steps_per_call=4, rebuild_every=2)
+    cut = getattr(harness.load_driver(tr["driver"]), "tiny", None)
+    if cut is not None:
+        cut(cfg, tr)
     return harness.Context(cfg, tr, seed, torch.device(device))
 
 
 def run(cell: str, seed: int = 2 ** 31 + 977, control: bool = False,
-        device="cpu"):
+        device="cpu", traced: bool = False):
     """Set-up, a window of one call, the check -> (checks, observations,
-    end-to-end values)."""
+    end-to-end values). ``traced``: the port's profiling on, as in a
+    ``--trace 1`` run (no profiler), and off again after."""
     ctx = context(cell, seed, device)
     driver = harness.load_driver(ctx.traffic["driver"]).Driver(ctx)
-    driver.setup()
-    obs = harness.Observations(ctx.config, ctx.traffic)
-    harness.run_window(driver, 0.0, obs)
+    program = harness.set_up(driver, ctx.traffic, traced)
+    try:
+        obs = harness.Observations(ctx.config, ctx.traffic, traced)
+        harness.run_window(driver, 0.0, obs, program)
+    finally:
+        if program is not None:
+            program.disable()
+            program.reset()
     e2e = driver.end_to_end(obs)
     driver.release()
     return driver.check(control=control), obs, e2e

@@ -16,6 +16,13 @@ appends the occupancy maps when ``with_om``, and runs the value net on the
 rows; ``GCNPolicy``'s runs the RGL value estimator on the raw states. So a
 trainer's ``functional_call(policy.networks, params, (robot, humans))``
 differentiates the whole of V.
+
+With the port's profiling on (``utils/profiling.py``), a lookahead records
+the device phases ``plan.lookahead`` (the reward estimate and the robot's
+and humans' next states), ``plan.om`` (the occupancy maps) and
+``plan.value_net`` (the rows through the value net), and counts the human
+rows of the value net (``plan.value_rows``) and the maps built
+(``plan.om_rows``); off, it launches what it launched without them.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from relationalgraphlearning_tpu_torch.policies import state_transform as st
 from relationalgraphlearning_tpu_torch.policies.action_space import (
     build_action_space)
 from relationalgraphlearning_tpu_torch.policies.base import epsilon_greedy
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 
 class RotatedValue(nn.Module):
@@ -55,16 +63,25 @@ class RotatedValue(nn.Module):
         self.om = (cfg.om_cell_num, cfg.om_cell_size, cfg.om_channel_size) \
             if cfg.with_om else None
 
-    def rows(self, robot: Tensor, humans: Tensor) -> Tensor:
+    def maps(self, humans: Tensor) -> Optional[Tensor]:
+        """Each human's occupancy map [..., N, om_width], or None without
+        ``with_om``."""
+        return None if self.om is None else \
+            st.build_occupancy_maps(humans, *self.om)
+
+    def rows(self, robot: Tensor, humans: Tensor,
+             maps: Optional[Tensor]) -> Tensor:
+        """The rotated rows, with ``maps`` appended when given."""
         rows = st.rotate_joint_state(robot, humans, self.kinematics)
-        if self.om is None:
-            return rows
-        return torch.cat([rows, st.build_occupancy_maps(humans, *self.om)],
-                         -1)
+        return rows if maps is None else torch.cat([rows, maps], -1)
+
+    def head(self, rows: Tensor) -> Tensor:
+        """The value net on the rows -> the value [...]."""
+        out = self.model(rows)
+        return out[0] if isinstance(out, tuple) else out  # SARL: (v, w)
 
     def forward(self, robot: Tensor, humans: Tensor) -> Tensor:
-        out = self.model(self.rows(robot, humans))
-        return out[0] if isinstance(out, tuple) else out  # SARL: (v, w)
+        return self.head(self.rows(robot, humans, self.maps(humans)))
 
     def value(self, robot: Tensor, humans: Tensor) -> Tensor:
         return self(robot, humans)
@@ -143,6 +160,26 @@ class OneStepLookaheadPolicy:
         """V(s) [...] of robot [..., 9] and humans [..., N, 5]."""
         return self.networks(robot, humans)
 
+    def _next_values(self, robot: Tensor, humans: Tensor) -> Tensor:
+        """``value`` of the lookahead's next states, in the device phases
+        ``plan.om`` (the occupancy maps) and ``plan.value_net`` (the rows
+        through the value net), with the rows and maps counted."""
+        net = self.networks
+        if not isinstance(net, RotatedValue):
+            with profiling.device_phase("plan.value_net", self.device):
+                return net(robot, humans)
+        with profiling.device_phase("plan.om", self.device):
+            maps = net.maps(humans)
+        with profiling.device_phase("plan.value_net", self.device):
+            rows = net.rows(robot, humans, maps)
+            del maps  # the net runs without the maps' own copy alive
+            v = net.head(rows)
+        n = humans.shape[:-1].numel()
+        profiling.count("plan.value_rows", n)
+        if net.om is not None:
+            profiling.count("plan.om_rows", n)
+        return v
+
     def _gamma_bar(self, robot: Tensor) -> Tensor:
         return torch.pow(self.gamma,
                          self.env_cfg.time_step * robot[..., T.VPREF])
@@ -161,13 +198,14 @@ class OneStepLookaheadPolicy:
         humans = js.humans[..., None, :, :].expand(
             js.humans.shape[:-2] + (A,) + js.humans.shape[-2:])
         acts = self._actions_like(robot[..., 0, :])
-        r = estimate_reward(robot, humans, acts, self.env_cfg)
-        next_robot = propagate_full_state(robot, acts, self.env_cfg.time_step,
-                                          self.kinematics)
-        next_humans = torch.cat([
-            T.position(humans) + T.velocity(humans) * self.env_cfg.time_step,
-            humans[..., T.VX:]], -1)
-        v_next = self.value(next_robot, next_humans)
+        with profiling.device_phase("plan.lookahead", self.device):
+            r = estimate_reward(robot, humans, acts, self.env_cfg)
+            next_robot = propagate_full_state(
+                robot, acts, self.env_cfg.time_step, self.kinematics)
+            next_humans = torch.cat([
+                T.position(humans) + T.velocity(humans)
+                * self.env_cfg.time_step, humans[..., T.VX:]], -1)
+        v_next = self._next_values(next_robot, next_humans)
         return r.reward + self._gamma_bar(js.robot)[..., None] * v_next
 
     def _choose(self, returns: Tensor, epsilon, generator, draws) -> Tensor:
@@ -188,10 +226,11 @@ class OneStepLookaheadPolicy:
     def action_values_env(self, env, states) -> Tensor:
         """The one-step return of every action [B, A] with the humans moved
         by the env's own crowd step (``env.lookahead_actions``)."""
-        rew, next_robot, next_obs = env.lookahead_actions(states,
-                                                          self.action_space)
+        with profiling.device_phase("plan.lookahead", self.device):
+            rew, next_robot, next_obs = env.lookahead_actions(
+                states, self.action_space)
         A = self.action_space.shape[0]
-        v_next = self.value(next_robot, next_obs[:, None].expand(
+        v_next = self._next_values(next_robot, next_obs[:, None].expand(
             (next_obs.shape[0], A) + next_obs.shape[1:]))
         return rew + self._gamma_bar(states.robot)[..., None] * v_next
 
@@ -232,7 +271,8 @@ class SARLPolicy(OneStepLookaheadPolicy):
     def attention_weights(self, js: T.JointState) -> Tensor:
         """SARL's attention over the humans [..., N]."""
         net = self.networks
-        return net.model(net.rows(js.robot, js.humans))[1]
+        return net.model(net.rows(js.robot, js.humans,
+                                  net.maps(js.humans)))[1]
 
 
 class LstmRLPolicy(OneStepLookaheadPolicy):

@@ -42,8 +42,9 @@ Phases, each of which exits non-zero on failure:
    steps one captured CUDA graph, captured once before the timed runs), in
    turns. The kernels' launch counts are zeroed just before each eager run
    and read just after; the shared-table kernel must have launched 64 times
-   (2 GCN layers x 32 steps), and the chunk's graph must hold 16 of its
-   launches and none of another kernel. Each graphed run must equal the
+   (2 GCN layers x 32 steps) and ORCA's kernel 32 times (one a step), and
+   the chunk's graph must hold 16 launches of the one and 8 of the other
+   and none of another kernel. Each graphed run must equal the
    eager run bit for bit. Checks coverage 1, finite results, the
    block+kernel value net against the gather backend on one rebuilt graph,
    and a small rollout on the card against the same rollout on the CPU.
@@ -60,8 +61,9 @@ Phases, each of which exits non-zero on failure:
 6. Slice 2's rollout: ``mega_crowd_rollout(n=10240, K=10, steps=32,
    backend="pallas", rebuild_every=8)``, eager and graphed in turns as in
    phase 4: exactly 64 launches of kernel #3 an eager run, 16 in the
-   chunk's graph, replays equal to the eager run, finite results, and the
-   pallas, block+kernel and gather value nets equal on one rebuilt graph.
+   chunk's graph (ORCA's 32 and 8), replays equal to the eager run,
+   finite results, and the pallas, block+kernel and gather value nets
+   equal on one rebuilt graph.
 7. The A/B harness (``tools/ab_kernel.py`` of the port) at its shapes
    (n=8192, K=16, d=64, B=256, C=544, inner=100), fewer rounds: coverage
    exactly 1 for the window and the chunked fetch, exactly ``inner``
@@ -84,7 +86,7 @@ Phases, each of which exits non-zero on failure:
    over the 500 cases, graphed and eager (bit for bit), held to its
    ``eval_test.json`` and the JAX per-case outcomes by the same limits,
    its summary printed beside the committed ``diagnosis.json``. None of
-   kernels #1-#7 may launch.
+   kernels #1-#7 may launch; ORCA's kernel must (the env's humans).
 9. MP-RGL training (slice 8) at the full width of
    ``configs/icra_benchmark/mp_separate.py``: one captured SGD step held to
    one eager step (and 8 to 8) from the same state and minibatch indices,
@@ -99,7 +101,7 @@ Phases, each of which exits non-zero on failure:
    ``rl_model_best`` and ``metrics.jsonl`` exist and ``rl_model`` restores
    to the live state. SGD steps/s and collection env-steps/s, graphed and
    eager in turns, the runs' walls and the capture seconds. None of
-   kernels #1-#7 may launch.
+   kernels #1-#7 may launch; ORCA's kernel must.
 10. The paper's baselines (slice 9): the 500 seeded test cases of seven
     rows of its table through ``Explorer.run_cases`` on the card, built as
     the port's CLI builds them: ``sarl``, ``sarl_om``, ``lstm_rl``,
@@ -131,7 +133,7 @@ Phases, each of which exits non-zero on failure:
     captured collection steps against eager ones (the demonstrator, and the
     baseline at ε = 0.5), and ``train_loop.train`` in its debug shrink
     graphed (and, for ``sarl``, eager), with phase 9's checks. None of
-    kernels #1-#7 may launch.
+    kernels #1-#7 may launch; ORCA's kernel must.
 11. The node-partitioned paths of ``parallel/`` on D ranks run as threads
     on the one card (``LocalComm``, D = 1, 2, 4, 8), the reference's
     ``bench_scaling.py`` protocol at full width (``GCNConfig``, the value
@@ -146,14 +148,16 @@ Phases, each of which exits non-zero on failure:
     same shapes); the partitioned mega-crowd rollout at n = 2048·D (n_cap
     2688, B=128, C=512, K=16, K_orca=10, 16 steps, R=8): agent-steps/s,
     window coverage 1, no overflow, none lost, every agent kept, #1
-    launched D x 2 x 16 times, |vmean| within 1e-3 of the one-device loop
-    (max |pos| difference reported); the reference's 600-agent D=4 case
-    against the one-device loop at atol 1e-4; and the D=2 block forward as
+    launched D x 2 x 16 times and ORCA's kernel D x 16, |vmean| within
+    1e-3 of the one-device loop (max |pos| difference reported); the
+    reference's 600-agent D=4 case against the one-device loop at atol
+    1e-4; and the D=2 block forward as
     two ``torch.distributed`` processes (gloo) sharing the card, equal to
     the threads' result bit for bit. Each forward row and mega run also
     runs graphed: every rank captured into one CUDA graph
     (``Mesh.capture``; the mega run with its per-chunk rebuilds), whose
-    ``launches`` must be the eager run's (#1 D x 2 x 8, D x 2 x 16) and
+    ``launches`` must be the eager run's (#1 D x 2 x 8, D x 2 x 16;
+    ORCA's D x 16 in the mega run) and
     whose replay must equal the eager run bit for bit; the rows time both
     modes in turns (E G G E) beside the capture seconds. One card: these
     rates are plumbing. The rows (``partition_row``, ``mega_row``) are
@@ -173,7 +177,8 @@ Phases, each of which exits non-zero on failure:
     as two gloo processes against ``--mesh_data 2`` as threads at toy
     counts (the checkpoints bit for bit), ``NativeORCA`` against
     ``envs/orca.py`` on 64 test cases' humans on the card, and one
-    ``mprl_td`` test case rendered to a GIF. None of #1-#7 may launch.
+    ``mprl_td`` test case rendered to a GIF. None of #1-#7 may launch;
+    ORCA's kernel must.
 13. The repository's four measurement entry points (slice 13). Kernels
     #1/#2 in bfloat16 against their plain versions at ``bench_roofline``'s
     chain shapes (n=8192, K=16, d=64, B=256, C=640) and at the JAX test's
@@ -184,16 +189,28 @@ Phases, each of which exits non-zero on failure:
     one bfloat16 ``scaled_dot_product_attention`` over the gathered window)
     beside the float32 kernel on the same rows; the FMA kernel of
     ``vpu_peak`` (``csrc/roofline.cu``) against its plain version, bit for
-    bit. Then bench.py's collection graphed == eager at B=1024 (16 steps),
+    bit. ORCA's velocity kernel (``csrc/orca_velocity.cu``) against its
+    plain version (``envs/orca.py::orca_velocity_plain``) bit for bit at
+    the crowd's kNN shapes (n=10,240, K=10), the dense env's (B=500, 5 and
+    6 agents, the neighbour tables expanded), M=64 and on pile-ups where
+    linearProgram3 decides; one launch a crowd step and one an env step;
+    timed warm and with a cold L2 at the crowd's shapes beside its bound,
+    the plain version's eager chain, and the whole kNN step (gathers
+    included) with either. Then bench.py's collection graphed == eager at
+    B=1024 (16 steps; ORCA's kernel once a step eager and in the step's
+    graph, no other kernel),
     and each tool's ``main`` at the reference's sizes (``tools/bench.py``
     with 2 graphed trials and 1 eager, the reference's 5;
     ``tools/bench_extra.py``; ``tools/bench_roofline.py``, its record to
     ``chiprun_out/ROOFLINE.json``; ``tools/bench_scaling.py`` and ``--mega``
     with 1 timed replay a row, the reference's 3), printing their lines and
-    walls, with exact launches: none on bench.py's collection and on the
-    planner, #1 100 times a fused-block chain row (f32 and bf16), 64 times
-    a 102,400-agent R=8 rollout, D·2·8 a block-halo row and D·2·16 a mega
-    row; the FMA kernel 16 times in ``vpu_peak``.
+    walls, with exact launches: ORCA's kernel once an env step on
+    bench.py's collection and the planner's, nothing else there and none
+    on a decision; #1 100 times a fused-block chain row (f32 and bf16), 64
+    times (and ORCA's 32) a 102,400-agent R=8 rollout, D·2·8 a block-halo
+    row and D·2·16 (ORCA's D·16) a mega row; the FMA kernel 16 times in
+    ``vpu_peak``. The ``kernels`` line takes ORCA's launches from that
+    rollout's.
 14. Print the ``kernels`` line, the card line and the last line.
 
 Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
@@ -225,6 +242,7 @@ from relationalgraphlearning_tpu_torch.configs.base import (
     EnvConfig, GCNConfig, PolicyConfig, load_config_module)
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
+from relationalgraphlearning_tpu_torch.envs import orca as orca_env
 from relationalgraphlearning_tpu_torch.envs.orca import ORCAParams
 from relationalgraphlearning_tpu_torch.ops import _build
 from relationalgraphlearning_tpu_torch.ops import ab_block as ab
@@ -232,6 +250,7 @@ from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
+from relationalgraphlearning_tpu_torch.ops import orca as orca_op
 from relationalgraphlearning_tpu_torch.ops import roofline
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.parallel import distributed
@@ -252,6 +271,7 @@ from relationalgraphlearning_tpu_torch.training import checkpoint as ckpt
 from relationalgraphlearning_tpu_torch.training import replay_buffer as rb
 from relationalgraphlearning_tpu_torch.training import train_loop
 from relationalgraphlearning_tpu_torch.training.explorer import Explorer
+from relationalgraphlearning_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
@@ -279,7 +299,7 @@ ROUTE_KERNEL = {"gather_kernel": "fused_gather_attention",
                 "chunk_d32": "chunk_block_attention"}
 SOURCES = ("fused_block_attention.cu", "fused_gather_attention.cu",
            "chunk_block_attention.cu", "ab_block_attention.cu",
-           "roofline.cu")
+           "roofline.cu", "orca_velocity.cu")
 # Kernel #6's four instantiations in the harness: (dtype, div_after,
 # intmask); phase 3c also checks the other four combinations.
 AB_VARIANTS = {"base_f32": (torch.float32, False, False),
@@ -997,8 +1017,9 @@ def rollout_turns(cfg, kernel, dev, runs=3):
     G E, ...), after an eager warm-up: the host's clock varies from run to
     run on a shared host, so medians are reported. Each eager run zeroes the
     counts just before it and checks them just after: 2 launches of
-    ``kernel`` a step, none of another. The chunk's graph must hold 2 a
-    step of its R, and a graphed run must equal the eager one bit for bit.
+    ``kernel`` and one of ORCA's a step, none of another. The chunk's graph
+    must hold as many a step of its R, and a graphed run must equal the
+    eager one bit for bit.
     Returns the eager run's ((pos, vel), values, coverage), its launches
     and the record of the turns."""
     mega_crowd.mega_crowd_rollout(**{**cfg, "steps": 8}, device=dev,
@@ -1013,8 +1034,7 @@ def rollout_turns(cfg, kernel, dev, runs=3):
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     graph = runner.graph.launches
-    want = {k: 0 for k in graph}
-    want[kernel] = layers * R
+    want = _want({kernel: layers * R, ORCA_KERNEL: R})
     if graph != want:
         raise RuntimeError(f"the rollout chunk's graph holds {graph}, want "
                            f"{want}")
@@ -1036,8 +1056,8 @@ def rollout_turns(cfg, kernel, dev, runs=3):
             walls[mode].append(time.perf_counter() - t0)
             if mode == "eager":
                 launches = captured.launch_counts()
-                expect = {k: 0 for k in launches}
-                expect[kernel] = layers * cfg["steps"]
+                expect = _want({kernel: layers * cfg["steps"],
+                                ORCA_KERNEL: cfg["steps"]})
                 if launches != expect:
                     raise RuntimeError(f"kernel launches in the rollout: "
                                        f"{launches}, want {expect}")
@@ -1519,7 +1539,7 @@ def diag_check(dev, model="mp_unicycle"):
 def mprl_phase(dev, report):
     """The four evaluated configurations, each eager and graphed in turns
     (E G, G E, ...). Kernel counts are zeroed before the phase and read
-    after it: this path launches none of #1-#7."""
+    after it: this path launches none of #1-#7, and ORCA's kernel."""
     precision = dict(
         float32_matmul_precision=torch.get_float32_matmul_precision(),
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -1536,9 +1556,7 @@ def mprl_phase(dev, report):
             runs.append(eval_run(run, model, "model_predictive_rl",
                                  overrides, record, dev, order))
         diagnosis = diag_check(dev)
-    launches = captured.launch_counts()
-    if any(launches.values()):
-        raise RuntimeError(f"the MP-RGL path launched kernels: {launches}")
+    launches = _only_orca("the MP-RGL path")
     report["mprl"] = dict(precision=precision, runs=runs,
                           diagnosis=diagnosis, launches=launches)
     return launches
@@ -1964,13 +1982,12 @@ def train_checks(dev, config_path, policy, label, eager_debug=True) -> dict:
 
 def train_phase(dev, report):
     """Slice 8's checks and rows. Kernel counts are zeroed before the phase
-    and read after it: training launches none of #1-#7."""
+    and read after it: training launches none of #1-#7, and ORCA's
+    kernel."""
     captured.reset_launch_counts()
     report["train"] = train_checks(dev, TRAIN_CONFIG, "model_predictive_rl",
                                    "train")
-    launches = captured.launch_counts()
-    if any(launches.values()):
-        raise RuntimeError(f"the training path launched kernels: {launches}")
+    launches = _only_orca("the training path")
     report["train"]["launches"] = launches
 
 
@@ -2085,7 +2102,7 @@ def baselines_phase(dev, report):
     port trained from scratch and slice 14's four MP-RGL runs, each eager
     and graphed in turns, the env-queried lookahead, the resume check, and
     the value-only training of every learned baseline. Kernel counts are zeroed before the phase and read after it:
-    this path launches none of #1-#7."""
+    this path launches none of #1-#7, and ORCA's kernel."""
     t0 = time.perf_counter()
     captured.reset_launch_counts()
     runs, port_runs = [], []
@@ -2119,9 +2136,7 @@ def baselines_phase(dev, report):
     train = {model: train_checks(dev, ROOT / "results" / model / "config.py",
                                  policy, model, eager_debug=model == "sarl")
              for model, policy in BASELINE_TRAIN}
-    launches = captured.launch_counts()
-    if any(launches.values()):
-        raise RuntimeError(f"the baselines' path launched kernels: {launches}")
+    launches = _only_orca("the baselines' path")
     seconds = time.perf_counter() - t0
     report["baselines"] = dict(runs=runs, port_trained=port_runs,
                                query_env=query_env, resume=resume,
@@ -2615,7 +2630,8 @@ def dp_phase(dev, report):
     """Slice 11: the data- and tensor-parallel path (``parallel/sharding
     .py``) at mp_separate's width on three meshes, the train CLI over a
     mesh and as processes, native ORCA and the renderer. Kernel counts are
-    zeroed before the phase and read after it: none of #1-#7 runs."""
+    zeroed before the phase and read after it: none of #1-#7 runs, and
+    ORCA's kernel does."""
     t0 = time.perf_counter()
     captured.reset_launch_counts()
     config = load_config_module(str(TRAIN_CONFIG))
@@ -2641,9 +2657,7 @@ def dp_phase(dev, report):
     cli = dp_cli_checks(dev)
     orca = native_orca_check(dev)
     gif = render_check(dev)
-    launches = captured.launch_counts()
-    if any(launches.values()):
-        raise RuntimeError(f"the dp/tp path launched kernels: {launches}")
+    launches = _only_orca("the dp/tp path")
     one_device = {r["optimizer"]: r["sgd_steps_per_s"]
                   for r in report.get("train", {}).get("sgd", [])}
     seconds = time.perf_counter() - t0
@@ -2830,19 +2844,156 @@ def bf16_kernel_phase(dev, flops, bw, report):
     return rows
 
 
+# ORCA's kernel at the crowd's shapes (the crowd cell's kNN step)
+ORCA = dict(n=10240, K=10)
+ORCA_KERNEL = "orca_velocity"
+# float32 operations of one ORCA line (its costliest branch, the leg):
+# a lower bound on what a solve does, which depends on the data
+ORCA_LINE_OPS = 47
+
+
+def orca_inputs(dev, n, M, spread, seed):
+    """n agents each against M random neighbours, `spread` m apart at
+    most: a small spread piles them up, so that linearProgram3 decides."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return (torch.rand(shape, generator=g) * (hi - lo) + lo).to(dev)
+    return (u(n, 2, lo=-spread, hi=spread), u(n, 2),
+            torch.full((n,), 0.3, device=dev), u(n, 2),
+            torch.ones(n, device=dev), u(n, M, 2, lo=-spread, hi=spread),
+            u(n, M, 2), torch.full((n, M), 0.3, device=dev),
+            u(n, M) > -0.7)
+
+
+def orca_crowd(dev, seed=0):
+    """The crowd's kNN ORCA step as the rollout runs it: positions at the
+    reference's density, the grid kNN, every 97th agent inactive."""
+    n, K = ORCA["n"], ORCA["K"]
+    g = torch.Generator().manual_seed(seed)
+    pos = mega_crowd.initial_crowd(n, seed=seed, device=dev)
+    vel = (torch.rand(n, 2, generator=g) - 0.5).to(dev)
+    pref = (torch.rand(n, 2, generator=g) * 2 - 1).to(dev)
+    rad, vmax = torch.full((n,), 0.3, device=dev), torch.ones(n, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    act[::97] = False
+    cols = knn_graph_auto(pos, K, valid=act)
+    return pos, vel, rad, pref, vmax, act, cols
+
+
+def orca_phase(dev, flops, bw, report):
+    """ORCA's velocity kernel against its plain version, bit for bit, its
+    launches a step, and its time beside its bound and the eager chain."""
+    params = ORCAParams()
+    pos, vel, rad, pref, vmax, act, cols = orca_crowd(dev)
+    me = torch.arange(ORCA["n"], device=dev)[:, None]
+    crowd = (pos, vel, rad, pref, vmax, pos[cols], vel[cols], rad[cols],
+             act[cols] & (cols != me))
+    cases = [("crowd n=10240 K=10", crowd)]
+    for B, n in ((500, 5), (500, 6)):
+        g = torch.Generator().manual_seed(n)
+        p = (torch.rand(B, n, 2, generator=g) * 8 - 4).to(dev)
+        v = (torch.rand(B, n, 2, generator=g) * 2 - 1).to(dev)
+        r = torch.full((B, n), 0.3, device=dev)
+        valid = (torch.ones(B, 1, n, dtype=torch.bool, device=dev)
+                 & ~torch.eye(n, dtype=torch.bool, device=dev))
+        cases.append((f"dense B={B} n={n}", (
+            p, v, r, (torch.rand(B, n, 2, generator=g) * 2 - 1).to(dev),
+            torch.ones(B, n, device=dev), p[:, None].expand(B, n, n, 2),
+            v[:, None].expand(B, n, n, 2), r[:, None].expand(B, n, n),
+            valid)))
+    for M, spread, seed in ((10, 1.0, 1), (10, 0.5, 2), (64, 2.0, 3)):
+        cases.append((f"M={M} spread={spread}",
+                      orca_inputs(dev, 2048, M, spread, seed)))
+    lp3 = {}
+    for label, args in cases:
+        profiling.reset()
+        got = orca_env.orca_velocity(*args, params)
+        want = orca_env.orca_velocity_plain(*args, params)
+        torch.cuda.synchronize()
+        counted = profiling.snapshot()["counters"]
+        lp3[label] = (counted["orca.lp3_agents"], args[0].shape[:-1].numel())
+        if not torch.equal(got, want):
+            bad = int((got != want).any(-1).sum())
+            raise RuntimeError(f"orca_velocity vs plain, {label}: {bad} "
+                               f"agents differ, max |diff| "
+                               f"{float((got - want).abs().max()):.3g}")
+    print(f"kernel orca_velocity == plain bit for bit over {len(cases)} "
+          f"cases (agents through linearProgram3, of those solved: "
+          f"{lp3})", flush=True)
+    profiling.reset()
+
+    # launches: one a crowd step (the kNN step) and one an env step (B=500)
+    orca_op.reset_launch_counts()
+    orca_env.centralized_orca_step_knn(pos, vel, rad, pref, vmax, act,
+                                       params, ORCA["K"], cols=cols)
+    crowd_launches = orca_op.orca_velocity.launches
+    config = load_config_module(str(TRAIN_CONFIG))
+    env = CrowdSim(config.env, device=dev)
+    state, _ = env.reset(range(500), config.env.sim.test_seed_offset)
+    orca_op.reset_launch_counts()
+    env.step(state, torch.zeros(500, 2, device=dev))
+    env_launches = orca_op.orca_velocity.launches
+    torch.cuda.synchronize()
+    if crowd_launches != 1 or env_launches != 1:
+        raise RuntimeError(f"orca_velocity launches: {crowd_launches} a "
+                           f"crowd step, {env_launches} an env step; want 1")
+
+    run = lambda: orca_env.orca_velocity(*crowd, params)  # noqa: E731
+    plain = lambda: orca_env.orca_velocity_plain(*crowd, params)  # noqa
+    step = lambda: orca_env.centralized_orca_step_knn(  # noqa: E731
+        pos, vel, rad, pref, vmax, act, params, ORCA["K"], cols=cols)
+    ms, cold_ms = device_ms(run), device_ms_cold(run)
+    plain_ms = device_ms(plain, reps=20)
+    step_ms = device_ms(step)
+    with_kernel = orca_env.orca_velocity    # the step's dispatch
+    orca_env.orca_velocity = orca_env.orca_velocity_plain
+    try:
+        step_plain_ms = device_ms(step, reps=20)
+    finally:
+        orca_env.orca_velocity = with_kernel
+    n, K = ORCA["n"], ORCA["K"]
+    # each input read once (float32; valid one byte), the output written
+    nbytes = n * 4 * (2 + 2 + 1 + 2 + 1) + n * K * (4 * 5 + 1) + n * 8
+    ops = ORCA_LINE_OPS * n * K
+    bound_ms, bound_by = bound(nbytes, ops, flops, bw)
+    report["kernel_detail"]["orca_velocity"] = dict(
+        shapes=ORCA, bytes=nbytes, ops=ops, cases=len(cases), lp3=lp3,
+        step_ms=step_ms, step_plain_ms=step_plain_ms,
+        env_step_launches=env_launches)
+    print(f"kernel orca_velocity: {ms:.4f} ms, cold L2 {cold_ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+          f"{bound_by}); the kNN step with it {step_ms:.4f} ms, with the "
+          f"plain version {step_plain_ms:.4f} ms; 1 launch a crowd step "
+          f"and an env step", flush=True)
+    return [dict(
+        name="orca_velocity", route="cuda",
+        source="relationalgraphlearning_tpu_torch/csrc/orca_velocity.cu",
+        replaces="envs/orca.py:orca_velocity (XLA fusion, no "
+                 "pl.pallas_call)",
+        launches=crowd_launches, max_abs_err=0.0, ms=ms,
+        cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)]
+
+
 def collector_check(dev, B=1024, steps=16):
     """bench.py's collection (the linear robot among ORCA humans) graphed
     against eager from the same carry, bit for bit, as phase 9 holds its
-    collections; no kernel runs there."""
+    collections; ORCA's kernel runs there once a step, in the eager loop
+    and in the captured step, and no other kernel does."""
     cfg = EnvConfig(human_policy="orca")
     ex = Explorer(CrowdSim(cfg, device=dev),
                   make_policy("linear", PolicyConfig(), cfg, device=dev), 0.9)
     carry = ex.init_carry(B, 0)
     captured.reset_launch_counts()
-    out = {mode: ex.collect(carry, steps, 0, graphed=mode == "graphed")
-           for mode in ("eager", "graphed")}
+    out = {"eager": ex.collect(carry, steps, 0, graphed=False)}
     torch.cuda.synchronize()
-    launches = captured.launch_counts()
+    _expect("bench.py's eager collection", captured.launch_counts(),
+            _want({ORCA_KERNEL: steps}))
+    out["graphed"] = ex.collect(carry, steps, 0, graphed=True)
+    torch.cuda.synchronize()
+    _expect("bench.py's collection step graph",
+            ex.collect_graph(B, steps, 0).launches, _want({ORCA_KERNEL: 1}))
     for part, got, want in (("carry", out["graphed"][0], out["eager"][0]),
                             ("trajectory", out["graphed"][1],
                              out["eager"][1])):
@@ -2851,17 +3002,26 @@ def collector_check(dev, B=1024, steps=16):
                 g, w, **REPLAY_TOL,
                 msg=lambda m: f"bench collection: graphed {part}.{field}: "
                               f"{m}")
-    if any(launches.values()):
-        raise RuntimeError(f"bench.py's collection launched {launches}")
     return dict(B=B, steps=steps, episodes=int(out["eager"][1].terminal
                                                .sum()))
 
 
-def _want(kernel=None, n=0):
+def _want(counts=None):
+    """Every kernel's launches: ``counts``'s, none of another."""
     want = {k: 0 for k in captured.launch_counts()}
-    if kernel:
-        want[kernel] = n
+    want.update(counts or {})
     return want
+
+
+def _only_orca(what):
+    """The launches since the counts were zeroed: ORCA's kernel (the env's
+    step) and none of #1-#7."""
+    launches = captured.launch_counts()
+    if not launches[ORCA_KERNEL] or any(
+            v for k, v in launches.items() if k != ORCA_KERNEL):
+        raise RuntimeError(f"{what}: launches {launches}, want ORCA's kernel "
+                           f"alone")
+    return launches
 
 
 def _expect(what, got, want):
@@ -2871,14 +3031,15 @@ def _expect(what, got, want):
 
 def bench_phase(dev, report):
     """The four tools' mains at the reference's sizes, each on the card
-    through its own entry point, their launches checked exactly. Returns
-    the launches on the tools' paths."""
+    through its own entry point, their launches checked exactly: ORCA's
+    kernel once an env step and a crowd step. Returns the launches on the
+    tools' paths."""
     t0 = time.perf_counter()
     shared = "fused_block_attention_packed_shared"
     col = collector_check(dev)
     print(f"bench collection: {col['steps']} graphed steps == eager at "
           f"B={col['B']}, bit for bit ({col['episodes']} episodes ended), "
-          f"no kernel", flush=True)
+          f"{ORCA_KERNEL} once a step", flush=True)
     walls = {}
 
     def tool(name, fn, *args):
@@ -2889,36 +3050,40 @@ def bench_phase(dev, report):
         return out
 
     head = tool("bench", tb.main, BENCH_ARGS)
-    _expect("bench.py's collection", head["collector"]["launches"], _want())
+    _expect("bench.py's collection", head["collector"]["launches"],
+            _want({ORCA_KERNEL: head["line"]["horizon"]}))
+    # the planners' collections: the defaults' 32 steps, one env step each
+    planning = dict(collect=_want({ORCA_KERNEL: 32}), decision=_want())
     for part, got in head["planning"]["launches"].items():
-        _expect(f"planning {part}", got, _want())
+        _expect(f"planning {part}", got, planning[part])
     extra = tool("bench_extra", tbe.main, [])
     by_metric = {line["metric"]: rec for line, rec in extra if rec}
     for part, got in by_metric[
             "planning decisions/s (d=2 MP-RGL in env)"]["launches"].items():
-        _expect(f"bench_extra planning {part}", got, _want())
+        _expect(f"bench_extra planning {part}", got, planning[part])
     _expect("bench_extra fused-block chain", by_metric[
         "relation edges/s (block path, fused pallas kernel)"]["launches"],
-        _want(shared, 100))
+        _want({shared: 100}))
     big = by_metric["100k-agent crowd (block+pallas, rebuild every 8)"]
-    _expect("100k R=8 rollout", big["launches"], _want(shared, 64))
+    _expect("100k R=8 rollout", big["launches"],
+            _want({shared: 64, ORCA_KERNEL: 32}))
     if big["coverage"] != 1.0:
         raise RuntimeError(f"100k R=8 rollout coverage {big['coverage']}")
     res, roof = tool("bench_roofline", tbr.main,
                      ["--out", str(OUT_DIR / "ROOFLINE.json")])
     for tag in ("f32", "bf16"):
         _expect(f"roofline fused block {tag}",
-                roof[f"block_pallas_{tag}"]["launches"], _want(shared, 100))
+                roof[f"block_pallas_{tag}"]["launches"], _want({shared: 100}))
     _expect("roofline vpu_peak", roof["vpu_launches"], {"fma_chain": 16})
     scaling = tool("bench_scaling", bs.main, SCALING_ARGS)
     mega = tool("bench_scaling --mega", bs.main, SCALING_ARGS + ["--mega"])
     for line, rec in scaling:
-        want = _want(shared, rec["D"] * 2 * 8 if rec["method"] == "block_halo"
-                     else 0)
+        want = _want({shared: rec["D"] * 2 * 8
+                      if rec["method"] == "block_halo" else 0})
         _expect(line["metric"], rec["launches"], want)
     for line, rec in mega:
-        _expect(line["metric"], rec["launches"], _want(shared,
-                                                       rec["D"] * 2 * 16))
+        _expect(line["metric"], rec["launches"],
+                _want({shared: rec["D"] * 2 * 16, ORCA_KERNEL: rec["D"] * 16}))
     seconds = time.perf_counter() - t0
     report["bench"] = dict(
         seconds=seconds, walls=walls, collector_check=col, bench=dict(
@@ -2934,7 +3099,8 @@ def bench_phase(dev, report):
         args=dict(bench=BENCH_ARGS, scaling=SCALING_ARGS))
     print(f"phase 13: {seconds:.1f} s", flush=True)
     return dict(bf16_shared=roof["block_pallas_bf16"]["launches"][shared],
-                fma=roof["vpu_launches"]["fma_chain"])
+                fma=roof["vpu_launches"]["fma_chain"],
+                orca=big["launches"][ORCA_KERNEL])
 
 
 def main() -> int:
@@ -2988,6 +3154,7 @@ def main() -> int:
     partition = partition_phase(dev, flops, bw, report)
     dp_phase(dev, report)
     kernels += bf16_kernel_phase(dev, flops, bw, report)
+    kernels += orca_phase(dev, flops, bw, report)
     bench = bench_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does);
     # #2's only path is the halo attention with a value table
@@ -3010,7 +3177,9 @@ def main() -> int:
         # (the JAX package runs it in bfloat16 only in its tests)
         "fused_block_attention_packed_shared[bf16]": bench["bf16_shared"],
         "fused_block_attention_packed[bf16]": 0,
-        "fma_chain": bench["fma"]}
+        "fma_chain": bench["fma"],
+        # bench_extra's 102,400-agent R=8 rollout, one a step
+        "orca_velocity": bench["orca"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
         if row["name"] in partition["k2"]["timing"]:

@@ -27,14 +27,15 @@ import torch
 from torch import Tensor
 
 from relationalgraphlearning_tpu_torch.ops import (
-    ab_block, fused_block, fused_chunk, fused_gather)
+    ab_block, fused_block, fused_chunk, fused_gather, orca)
 from relationalgraphlearning_tpu_torch.utils import profiling
 
-_KERNEL_MODULES = (fused_block, fused_gather, fused_chunk, ab_block)
+_KERNEL_MODULES = (fused_block, fused_gather, fused_chunk, ab_block, orca)
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel (#1-#7)."""
+    """Every kernel wrapper's launch count, by kernel (#1-#7 and ORCA's
+    ``orca_velocity``)."""
     counts = {}
     for mod in _KERNEL_MODULES:
         counts.update(mod.launch_counts())

@@ -15,6 +15,12 @@ at once ([..., M, M] pairs, its reductions are exact min/max/any), the
 projected problems of linearProgram3 are solved batched up front, and what
 stays sequential is M-step ``where`` chains. The arithmetic of each value is
 the reference's.
+
+That is the plain version, ``orca_velocity_plain``, which
+``orca_velocity`` runs for CPU tensors. For CUDA tensors ``orca_velocity``
+is one launch of a hand-written kernel (``ops/orca.py``, one thread an
+agent) that repeats the plain version's float32 arithmetic operation by
+operation, or a raise.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from relationalgraphlearning_tpu_torch.ops import orca as orca_kernel
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 
 _EPS = 1e-5
@@ -229,7 +236,20 @@ def orca_velocity(p_i: Tensor, v_i: Tensor, r_i: Tensor, pref_vel: Tensor,
                   valid: Tensor, params: ORCAParams) -> Tensor:
     """New velocity of each agent given its M (masked) neighbours:
     p_i/v_i/pref_vel [..., 2], r_i/max_speed [...], p_j/v_j [..., M, 2],
-    r_j/valid [..., M] → [..., 2]."""
+    r_j/valid [..., M] → [..., 2]. CUDA tensors: the kernel
+    (``ops/orca.py``); CPU tensors: ``orca_velocity_plain``."""
+    if p_i.is_cuda:
+        return orca_kernel.orca_velocity(p_i, v_i, r_i, pref_vel, max_speed,
+                                         p_j, v_j, r_j, valid, params)
+    return orca_velocity_plain(p_i, v_i, r_i, pref_vel, max_speed, p_j, v_j,
+                               r_j, valid, params)
+
+
+def orca_velocity_plain(p_i: Tensor, v_i: Tensor, r_i: Tensor,
+                        pref_vel: Tensor, max_speed: Tensor, p_j: Tensor,
+                        v_j: Tensor, r_j: Tensor, valid: Tensor,
+                        params: ORCAParams) -> Tensor:
+    """``orca_velocity`` as masked tensor operations, on any device."""
     pts, dirs, line_valid = orca_lines(
         p_i, v_i, r_i + params.safety_space,
         p_j, v_j, r_j + params.safety_space, valid, params)

@@ -249,6 +249,7 @@ def mega_row(D, net, dev):
     launches = captured.launch_counts()
     want = {k: 0 for k in launches}
     want["fused_block_attention_packed_shared"] = D * 2 * cfg["steps"]
+    want["orca_velocity"] = D * cfg["steps"]      # one a rank and step
     if launches != want:
         raise RuntimeError(f"mega D={D}: launches {launches}, want {want}")
     diag = {k: float(v) for k, v in diag.items()}

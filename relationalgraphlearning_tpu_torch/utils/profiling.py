@@ -14,6 +14,10 @@ On:
   ``record_function`` range, so the trace's device events sit on the same
   clock as the port's spans. ``annotate`` is the same function.
 - ``count(name, n)``: adds ``n`` to a counter.
+- ``device_counter(name, t)``: a device int64 scalar that a kernel adds
+  into on every launch and every replay of a graph holding one, with the
+  switch on or off; ``snapshot`` adds its value to the counter ``name``,
+  ``reset`` zeroes it.
 - ``device_phase(name, device)``: device time between two external CUDA
   timing events recorded inside a capture that ``captured.Graphed``
   started, so that each replay records them again as event nodes of the
@@ -55,6 +59,7 @@ _NULL = contextlib.nullcontext()
 _spans: dict = {}  # name -> [count, total_s, self_s, {parent: count}]
 _counters: dict = {}
 _graphs: dict = {}  # graph name -> replays, read, skipped, phase times
+_device_counters: list = []  # (name, device int64 scalar a kernel adds to)
 _readers = weakref.WeakSet()  # every PhaseReader, for snapshot()
 
 
@@ -81,6 +86,8 @@ def reset() -> None:
         _graphs.clear()
         for r in list(_readers):
             r.pending = False
+        for _, t in _device_counters:
+            t.zero_()
 
 
 # --------------------------------------------------------------- host spans
@@ -174,6 +181,13 @@ def count(name: str, n: float = 1) -> None:
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def device_counter(name: str, t: torch.Tensor) -> None:
+    """Read the device int64 scalar ``t`` that a kernel adds into as the
+    counter ``name`` (``snapshot``; ``reset`` zeroes it)."""
+    with _lock:
+        _device_counters.append((name, t))
 
 
 # ------------------------------------------------------------ device phases
@@ -271,10 +285,13 @@ def snapshot() -> dict:
         for r in list(_readers):
             if r.pending:
                 r._read(_graph(r.name))
+        counters = dict(_counters)
+        for name, t in _device_counters:
+            counters[name] = counters.get(name, 0) + int(t)
         return {
             "spans": {n: {"count": s[0], "total_s": s[1], "self_s": s[2],
                           "parents": dict(s[3])} for n, s in _spans.items()},
-            "counters": dict(_counters),
+            "counters": counters,
             "graphs": {n: {**g, "phases": {p: dict(v) for p, v
                                            in g["phases"].items()}}
                        for n, g in _graphs.items()}}

@@ -517,7 +517,8 @@ def test_cuda_rollout_graph_refreshes_its_buffers(dev, monkeypatch, backend,
     if backend == "pallas":
         assert all(any(c is cols for c in checked) for cols in chunks)
     assert graphed.graph.launches == {
-        **{k: 0 for k in graphed.graph.launches}, kernel: 4}
+        **{k: 0 for k in graphed.graph.launches}, kernel: 4,
+        "orca_velocity": 2}                    # ORCA once a step
 
 
 # ----------------------------------------- kernels #4/#7, chunked fetch
@@ -928,7 +929,8 @@ def test_cuda_shared_prediction_matches_the_per_action_expansion(dev):
 def test_cuda_captured_decision_and_step_replays_eager(dev):
     """64 test cases for all 100 steps: the graphed rollout (one decision
     and one env step captured, replayed) equals the eager loop bit for bit,
-    and the graph launches none of kernels #1-#7."""
+    and the graph launches none of kernels #1-#7 and ORCA's kernel once
+    (the env's step)."""
     config, _, _, ex = _mprl(dev)
     offset = config.env.sim.test_seed_offset
     with torch.no_grad():
@@ -937,7 +939,8 @@ def test_cuda_captured_decision_and_step_replays_eager(dev):
         again = ex.rollout(offset, range(64))  # graphed, the graph reused
     assert len(ex._graphs) == 1
     (graph,) = ex._graphs.values()
-    assert not any(graph.launches.values())
+    assert graph.launches == {**{k: 0 for k in graph.launches},
+                              "orca_velocity": 1}
     for name, a, b, c in zip(eager._fields, eager, graphed, again):
         torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
         torch.testing.assert_close(c, a, rtol=0, atol=0, msg=name)
@@ -1132,7 +1135,8 @@ def test_cuda_baseline_action_values_match_the_cpu(dev, model):
     ("cadrl", False), ("rgl", False), ("sarl", True)])
 def test_cuda_baseline_captured_rollout_replays_eager(dev, model, query_env):
     """64 test cases for all 100 steps: the graphed rollout equals the
-    eager loop bit for bit and its graph launches none of kernels #1-#7;
+    eager loop bit for bit and its graph launches none of kernels #1-#7
+    and ORCA's kernel once a step, twice with the env-queried lookahead;
     at most one of the 64 outcomes differs from the JAX package's
     per-case record (the 500-case bound of chip_smoke.py is 15)."""
     config, _, _, ex = _baseline(dev, model, query_env)
@@ -1141,7 +1145,8 @@ def test_cuda_baseline_captured_rollout_replays_eager(dev, model, query_env):
         eager = ex.rollout(offset, range(64), graphed=False)
         graphed = ex.rollout(offset, range(64), graphed=True)
     (graph,) = ex._graphs.values()
-    assert not any(graph.launches.values())
+    assert graph.launches == {**{k: 0 for k in graph.launches},
+                              "orca_velocity": 2 if query_env else 1}
     for name, a, b in zip(eager._fields, eager, graphed):
         torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
     if not query_env:  # the records are of the constant-velocity lookahead

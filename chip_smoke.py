@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py            # the run the port is held to
-    python3 chip_smoke.py --profile  # also where a rollout chunk's time
-                                     # goes, eager and graphed
+    python3 chip_smoke.py
+
+It checks the port on the card; the end-to-end rates are the benchmark's
+(``BENCHMARK.json``, ``benchmarks/run.py``, with ``--trace 1`` for where
+the time goes) and the measurement tools' (``tools/``, run in phase 13).
+It times only what nothing else measures: each kernel against its plain
+version and its bound (the ``kernels`` line), the relation chain's routes,
+the pallas rollout and the evaluations' walls.
 
 Phases, each of which exits non-zero on failure:
 
@@ -37,17 +42,18 @@ Phases, each of which exits non-zero on failure:
    the same shapes. #1, #5 and #6 are also timed with a cold L2
    (``cold_ms``).
 4. Slice 1: ``mega_crowd_rollout`` at n=10,240, K=10, 32 steps, block
-   backend with packed masks, B=256, C=576, rebuild every 8 steps, eager
-   (``graphed=False``) and graphed (``MegaCrowdRollout``: each chunk's 8
-   steps one captured CUDA graph, captured once before the timed runs), in
-   turns. The kernels' launch counts are zeroed just before each eager run
-   and read just after; the shared-table kernel must have launched 64 times
+   backend with packed masks, B=256, C=576, rebuild every 8 steps, once
+   eager (``graphed=False``) and once graphed (``MegaCrowdRollout``: each
+   chunk's 8 steps one captured CUDA graph, captured first). The kernels'
+   launch counts are zeroed just before the eager run and read just after;
+   the shared-table kernel must have launched 64 times
    (2 GCN layers x 32 steps) and ORCA's kernel 32 times (one a step), and
    the chunk's graph must hold 16 launches of the one and 8 of the other
    and none of another kernel. Each graphed run must equal the
    eager run bit for bit. Checks coverage 1, finite results, the
    block+kernel value net against the gather backend on one rebuilt graph,
    and a small rollout on the card against the same rollout on the CPU.
+   Its rate is the ``crowd10k.block_r8`` cell's.
 5. The relation chain (``relation_chain.py``) at n=8192, K=16, d=64,
    inner=100, B=256 over every route, and ``chunk_d32`` beside ``block`` at
    d=32: coverage exactly 1, exactly ``inner`` launches of each route's
@@ -59,19 +65,21 @@ Phases, each of which exits non-zero on failure:
    synchronises, the reference's protocol) and eager, as medians of
    interleaved runs.
 6. Slice 2's rollout: ``mega_crowd_rollout(n=10240, K=10, steps=32,
-   backend="pallas", rebuild_every=8)``, eager and graphed in turns as in
-   phase 4: exactly 64 launches of kernel #3 an eager run, 16 in the
+   backend="pallas", rebuild_every=8)``, checked as in phase 4 and, after
+   an eager warm-up, run eager and graphed 3 times each in turns for its
+   agent-steps/s: exactly 64 launches of kernel #3 an eager run, 16 in the
    chunk's graph (ORCA's 32 and 8), replays equal to the eager run,
    finite results, and the pallas, block+kernel and gather value nets
    equal on one rebuilt graph.
 7. The A/B harness (``tools/ab_kernel.py`` of the port) at its shapes
-   (n=8192, K=16, d=64, B=256, C=544, inner=100), fewer rounds: coverage
+   (n=8192, K=16, d=64, B=256, C=544, inner=100), its checked runs alone
+   (``rounds=0``; its rates are ``python -m
+   relationalgraphlearning_tpu_torch.tools.ab_kernel``'s): coverage
    exactly 1 for the window and the chunked fetch, exactly ``inner``
    launches of #6 (#4 for ``chunkfetch_f32``) in each variant's checked
    chain run and in its captured graph, each replay equal to the checked
    run, and each variant's final h against the plain gather chain (the
-   frozen-table variants against the same chain on the plain version);
-   Gedges/s graphed and eager, in the same turns.
+   frozen-table variants against the same chain on the plain version).
 8. MP-RGL evaluation (slice 7): the committed checkpoints' 500 seeded test
    cases through ``Explorer.run_cases`` on the card: ``mprl_td`` at its
    d=2, w=2, the same weights at d=1 and at d=2, w=4, and
@@ -99,9 +107,9 @@ Phases, each of which exits non-zero on failure:
    and eager in turns: the demonstrator gate passes, the losses are
    finite, the parameters moved, ``il_model``, ``rl_model``,
    ``rl_model_best`` and ``metrics.jsonl`` exist and ``rl_model`` restores
-   to the live state. SGD steps/s and collection env-steps/s, graphed and
-   eager in turns, the runs' walls and the capture seconds. None of
-   kernels #1-#7 may launch; ORCA's kernel must.
+   to the live state, with the runs' walls and the capture seconds (the
+   rates are the ``mp_rgl.train`` cell's). None of kernels #1-#7 may
+   launch; ORCA's kernel must.
 10. The paper's baselines (slice 9): the 500 seeded test cases of seven
     rows of its table through ``Explorer.run_cases`` on the card, built as
     the port's CLI builds them: ``sarl``, ``sarl_om``, ``lstm_rl``,
@@ -140,14 +148,13 @@ Phases, each of which exits non-zero on failure:
     head 32-100-100-1): the ring, all-gather and block-halo SparseRGL
     forwards at n = 2048·D, K=16, 8 chained forwards (block halo: sorted,
     B=128, C=448, packed masks, the least halo a multiple of 8), each D in
-    turn, Medges/s and the efficiency against D=1, each forward held to the
-    one-device SparseRGL at rtol 2e-4 / atol 2e-5 and kernel #1 launched
+    turn, each forward held to the one-device SparseRGL at rtol 2e-4 / atol 2e-5 and kernel #1 launched
     exactly D x 2 x 8 times on a block-halo row (none on the others); kernel
     #2 through ``block_halo_attention`` with a value table at D=4 (D
     launches, equal to its plain version, timed per launch with #1 at the
     same shapes); the partitioned mega-crowd rollout at n = 2048·D (n_cap
-    2688, B=128, C=512, K=16, K_orca=10, 16 steps, R=8): agent-steps/s,
-    window coverage 1, no overflow, none lost, every agent kept, #1
+    2688, B=128, C=512, K=16, K_orca=10, 16 steps, R=8): window coverage 1,
+    no overflow, none lost, every agent kept, #1
     launched D x 2 x 16 times and ORCA's kernel D x 16, |vmean| within
     1e-3 of the one-device loop (max |pos| difference reported); the
     reference's 600-agent D=4 case against the one-device loop at atol
@@ -158,10 +165,10 @@ Phases, each of which exits non-zero on failure:
     (``Mesh.capture``; the mega run with its per-chunk rebuilds), whose
     ``launches`` must be the eager run's (#1 D x 2 x 8, D x 2 x 16;
     ORCA's D x 16 in the mega run) and
-    whose replay must equal the eager run bit for bit; the rows time both
-    modes in turns (E G G E) beside the capture seconds. One card: these
-    rates are plumbing. The rows (``partition_row``, ``mega_row``) are
-    ``tools/bench_scaling.py``'s.
+    whose replay must equal the eager run bit for bit, beside the capture
+    seconds. The rows (``partition_row``, ``mega_row``) are
+    ``tools/bench_scaling.py``'s, whose ``main`` and ``--mega`` (phase 13)
+    time them.
 12. The data- and tensor-parallel path (``parallel/sharding.py``) at the
     full width of ``mp_separate``, the first stage of the reference's
     multi-device dry run at its meshes for 2, 4 and 8 devices, (data,
@@ -171,8 +178,8 @@ Phases, each of which exits non-zero on failure:
     (the imitation optimizer) within value-loss rel 1e-4 and parameters
     1e-4 of one device (``tests/test_parallel.py:107-147``); the step
     captured as one graph of all ranks equal to the eager ranks bit for
-    bit for SGD and Adam, every rank of an axis holding the same bits;
-    Adam steps/s graphed and eager in turns. Then ``cli.train --debug
+    bit for SGD and Adam, every rank of an axis holding the same bits.
+    Then ``cli.train --debug
     --mesh_data 2 --mesh_model 2`` to its end, ``cli.train --multihost``
     as two gloo processes against ``--mesh_data 2`` as threads at toy
     counts (the checkpoints bit for bit), ``NativeORCA`` against
@@ -218,7 +225,6 @@ Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -234,6 +240,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmarks.counters import fba
 from relationalgraphlearning_tpu_torch import captured, checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch import types as T
@@ -250,7 +257,6 @@ from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
-from relationalgraphlearning_tpu_torch.ops import orca as orca_op
 from relationalgraphlearning_tpu_torch.ops import roofline
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.parallel import distributed
@@ -310,9 +316,9 @@ AB_VARIANTS = {"base_f32": (torch.float32, False, False),
 # round e (or e/den) and the output to bfloat16 with round-to-nearest-even,
 # from float32 sums taken in another order.
 BF16_TOL = dict(rtol=2**-7, atol=2**-9)
-# The harness at the reference's shapes; fewer rounds and reps than its
-# defaults (7 x 30) so that the script stays inside its time limit.
-HARNESS = dict(rounds=5, reps=5, B=256, C=544, inner=100)
+# The harness at the reference's shapes, its checked runs alone (no timed
+# rounds: the harness's own entry point times them).
+HARNESS = dict(rounds=0, B=256, C=544, inner=100)
 # The bfloat16 chain's final h against the float32 gather chain: bfloat16
 # features carry 8 bits, so each application rounds every element by up to
 # half an ulp and the contracting chain holds about one step's rounding.
@@ -446,6 +452,15 @@ def device_ms_cold(fn, reps: int = 20) -> float:
     calls()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def timed(fn) -> float:
+    """Wall seconds of ``fn``, between synchronises of the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def bound(nbytes: float, ops: float, flops: float, bw: float):
@@ -600,12 +615,14 @@ def kernel_phase(dev, flops, bw, report):
         except RuntimeError as e:  # a yardstick only: note why it is absent
             library_ms = None
             report["notes"].append(f"{name}: library call failed: {e}")
-        tables = n * d * 4 + (0 if kind == "shared" else n * dv * 4)
-        nbytes = (qb.numel() * 4 + tables + cand.numel() * 8
-                  + mbits.numel() * 4 + nb * B * dv * 4)
-        # per edge: d multiply-adds for the score, dv for the value sum,
-        # one exp and one add for the denominator
-        ops = edges * (2 * d + 2 * dv + 2)
+        # #1's bytes and operations: the count fba_roofline.crowd divides
+        # by. #2 also reads its value table and writes dv wide; per edge d
+        # multiply-adds for the score, dv for the value sum, one exp and
+        # one add for the denominator
+        nbytes, ops = fba.launch(n, d, B, C, edges)
+        if kind == "separate":
+            nbytes += 4 * (n * dv + nb * B * (dv - d))
+            ops = edges * (2 * d + 2 * dv + 2)
         bound_ms, bound_by = bound(nbytes, ops, flops, bw)
         dense_ops = nb * B * C * (2 * d + 2 * dv + 2)
         rows.append(dict(
@@ -990,8 +1007,7 @@ def kernel_phase_3c(dev, flops, bw, report):
         ms=device_ms(block_chain), cold_ms=device_ms_cold(block_chain),
         plain_ms=device_ms(lambda: fb.fused_block_attention_packed_shared_plain(
             qb, h, cand, mbits, "l2norm", False), reps=20),
-        bound=bound(4 * (3 * n * d + mbits.numel()) + 8 * cand.numel(),
-                    edges * (4 * d + 2), flops, bw))
+        bound=bound(*fba.launch(n, d, B, C, edges), flops, bw))
     report["kernel_detail"]["fused_block_attention_packed_shared@chain"] = \
         detail
     print(f"kernel fused_block_attention_packed_shared at the chain's shapes "
@@ -1010,20 +1026,16 @@ def knn_overlap(pos, vel, rebuild_every):
                  .float().mean())
 
 
-def rollout_turns(cfg, kernel, dev, runs=3):
+def rollout_turns(cfg, kernel, dev, runs):
     """The rollout ``cfg`` eager (``mega_crowd_rollout(graphed=False)``) and
     graphed (one ``MegaCrowdRollout``, captured first and timed apart, as the
     reference compiles before it times), ``runs`` times each in turns (E G,
-    G E, ...), after an eager warm-up: the host's clock varies from run to
-    run on a shared host, so medians are reported. Each eager run zeroes the
-    counts just before it and checks them just after: 2 launches of
-    ``kernel`` and one of ORCA's a step, none of another. The chunk's graph
-    must hold as many a step of its R, and a graphed run must equal the
-    eager one bit for bit.
+    G E, ...). Each eager run zeroes the counts just before it and checks
+    them just after: 2 launches of ``kernel`` and one of ORCA's a step, none
+    of another. The chunk's graph must hold as many a step of its R, and a
+    graphed run must equal the eager one bit for bit.
     Returns the eager run's ((pos, vel), values, coverage), its launches
-    and the record of the turns."""
-    mega_crowd.mega_crowd_rollout(**{**cfg, "steps": 8}, device=dev,
-                                  graphed=False)
+    and the record of the turns (``walls``: each mode's seconds a run)."""
     layers, R = GCNConfig().num_layer, cfg["rebuild_every"]
     runner = mega_crowd.MegaCrowdRollout(
         **{k: v for k, v in cfg.items() if k not in ("n", "steps")},
@@ -1071,23 +1083,18 @@ def rollout_turns(cfg, kernel, dev, runs=3):
             got, ref, **REPLAY_TOL,
             msg=lambda m: f"graphed rollout {name} vs eager: {m}")
         replay_err = max(replay_err, float((got - ref).abs().max()))
-    steps_done = cfg["n"] * cfg["steps"]
-    turns = dict(
-        agent_steps_per_s=steps_done / statistics.median(walls["graphed"]),
-        agent_steps_per_s_eager=steps_done / statistics.median(
-            walls["eager"]),
-        agent_steps_per_s_runs=[steps_done / w for w in walls["graphed"]],
-        agent_steps_per_s_eager_runs=[steps_done / w
-                                      for w in walls["eager"]],
-        capture_s=capture_s, graph_launches=graph, replay_err=replay_err)
+    turns = dict(walls=walls, capture_s=capture_s, graph_launches=graph,
+                 replay_err=replay_err)
     return (pos, vel), vals, cov, launches, turns
 
 
-def slice_phase(dev, report, runs=3):
-    """The slice's rollout, eager and graphed in turns (``rollout_turns``),
-    and its checks."""
+def slice_phase(dev, report):
+    """The slice's rollout, once eager and once graphed
+    (``rollout_turns``), and its checks; its rate is the
+    ``crowd10k.block_r8`` cell's."""
     (pos, vel), vals, cov, launches, turns = rollout_turns(
-        SLICE, "fused_block_attention_packed_shared", dev, runs)
+        SLICE, "fused_block_attention_packed_shared", dev, runs=1)
+    del turns["walls"]
     if float(cov) != 1.0:
         raise RuntimeError(f"minimum coverage {float(cov)} != 1")
     for name, t in (("pos", pos), ("vel", vel), ("values", vals)):
@@ -1127,11 +1134,8 @@ def slice_phase(dev, report, runs=3):
         launches=launches, value_mean_last=float(vals[-1]),
         net_block_vs_gather_err=net_err,
         small_rollout_cuda_vs_cpu_err=small_err)
-    print(f"slice: {turns['agent_steps_per_s']:.1f} agent-steps/s graphed, "
-          f"{turns['agent_steps_per_s_eager']:.1f} eager, medians of {runs} "
-          f"runs in turns (graphed {turns['agent_steps_per_s_runs']}, eager "
-          f"{turns['agent_steps_per_s_eager_runs']}; capture "
-          f"{turns['capture_s']:.3f} s), coverage {float(cov)}, knn_overlap "
+    print(f"slice: eager and graphed (capture {turns['capture_s']:.3f} s), "
+          f"coverage {float(cov)}, knn_overlap "
           f"{overlap:.4f}, launches {launches}, graph launches "
           f"{ {k: v for k, v in turns['graph_launches'].items() if v} }, "
           f"replay vs eager {turns['replay_err']:.3g}, net block vs gather "
@@ -1239,9 +1243,22 @@ def chain_phase(dev, report, rounds=5):
 # ------------------------------------------------------------------ phase 6
 def pallas_phase(dev, report, runs=3):
     """Slice 2's rollout on the per-edge gather kernel, eager and graphed in
-    turns (``rollout_turns``), and its checks."""
+    turns (``rollout_turns``) after an eager warm-up, and its checks. The
+    host's clock varies from run to run on a shared host, so medians are
+    reported."""
+    mega_crowd.mega_crowd_rollout(**{**PALLAS, "steps": 8}, device=dev,
+                                  graphed=False)
     (pos, vel), vals, cov, launches, turns = rollout_turns(
         PALLAS, "fused_gather_attention", dev, runs)
+    walls = turns.pop("walls")
+    steps_done = PALLAS["n"] * PALLAS["steps"]
+    turns.update(
+        agent_steps_per_s=steps_done / statistics.median(walls["graphed"]),
+        agent_steps_per_s_eager=steps_done / statistics.median(
+            walls["eager"]),
+        agent_steps_per_s_runs=[steps_done / w for w in walls["graphed"]],
+        agent_steps_per_s_eager_runs=[steps_done / w
+                                      for w in walls["eager"]])
     for name, t in (("pos", pos), ("vel", vel), ("values", vals)):
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"pallas rollout: non-finite {name}")
@@ -1282,10 +1299,10 @@ def pallas_phase(dev, report, runs=3):
 
 # ------------------------------------------------------------------ phase 7
 def harness_phase(dev, report):
-    """The A/B harness at its shapes, each variant's chain graphed (its
-    timed rows) and eager, in the same turns. ``run`` zeroes the counts of
-    #6 and #4 before each variant's checked chain run and reads them after;
-    the totals over the whole run are read here too."""
+    """The A/B harness at its shapes, each variant's checked chain run and
+    its captured graph. ``run`` zeroes the counts before each variant's
+    checked chain run and reads #6's and #4's after; the totals over the
+    whole run are read here too."""
     inner = HARNESS["inner"]
     torch.cuda.synchronize()
     captured.reset_launch_counts()
@@ -1300,9 +1317,7 @@ def harness_phase(dev, report):
         raise RuntimeError(f"harness: chunk coverage {chunk}")
     # ``run`` last zeroed the counts before chunkfetch_f32's checked run,
     # the last variant's; its graph's two warm-up runs and its capture came
-    # after it, then the timed rounds, whose replays count nothing and whose
-    # eager runs count every launch
-    timed = HARNESS["rounds"] * HARNESS["reps"]
+    # after it, and its replay counts nothing
     want_total = {k: 0 for k in total}
     want_total["chunk_block_attention"] = inner * (1 + 2 + 1)
     for rec in recs:
@@ -1320,7 +1335,6 @@ def harness_phase(dev, report):
         if rec["replay_err"] > REPLAY_TOL["atol"]:
             raise RuntimeError(f"harness {name}: replay off the eager run by "
                                f"{rec['replay_err']}")
-        want_total[kernel] += inner * timed
     if total != want_total:
         raise RuntimeError(f"harness: launches over the run {total}, want "
                            f"{want_total}")
@@ -1369,7 +1383,6 @@ def harness_phase(dev, report):
     return {rec["variant"]: rec["launches"] for rec in recs}
 
 
-# ------------------------------------------------------------- --profile
 # ------------------------------------------------------------------ phase 8
 def eval_setup(model, policy, overrides, dev, results=ROOT / "results"):
     """(config, env, policy, explorer) of ``<results>/<model>`` with the
@@ -1500,7 +1513,7 @@ def diag_check(dev, model="mp_unicycle"):
     cases = config.env.sim.test_size
     recs, walls = {}, {}
     for mode in ("graphed", "eager"):  # the first call captures
-        walls[mode] = bs.timed(lambda: recs.update({mode: diag.rollout(
+        walls[mode] = timed(lambda: recs.update({mode: diag.rollout(
             explorer, cases, graphed=mode == "graphed")}))
     for k, v in recs["eager"].items():
         if not np.array_equal(recs["graphed"][k], v):
@@ -1562,222 +1575,9 @@ def mprl_phase(dev, report):
     return launches
 
 
-def mprl_profile_phase(dev, report, steps=10):
-    """Where one evaluation step of ``mprl_td`` (500 cases, d=2, w=2) goes:
-    host seconds of the decision (planner), the humans' ORCA step and the
-    reward (collision check), each closed by a synchronise, over ``steps``
-    eager steps; the profiler's device time by
-    kernel over one eager step and over one graph replay."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from relationalgraphlearning_tpu_torch.envs.reward import compute_reward
-
-    config, env, policy, explorer = eval_setup("mprl_td",
-                                               "model_predictive_rl", {}, dev)
-    carry = explorer.initial_carry(config.env.sim.test_seed_offset,
-                                   range(config.env.sim.test_size))
-    times = dict(planner=0.0, orca=0.0, reward=0.0)
-    with torch.no_grad():
-        explorer.eval_step(*carry)
-        for _ in range(steps):
-            states = carry.states
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            action = explorer._act(states)
-            torch.cuda.synchronize()
-            times["planner"] += time.perf_counter() - t
-            t = time.perf_counter()
-            human_v = env.human_velocities(states)
-            torch.cuda.synchronize()
-            times["orca"] += time.perf_counter() - t
-            t = time.perf_counter()
-            compute_reward(states.robot, T.observable(states.humans), human_v,
-                           action, (states.step + 1.0) * config.env.time_step,
-                           config.env)
-            torch.cuda.synchronize()
-            times["reward"] += time.perf_counter() - t
-            carry = type(carry)(*explorer.eval_step(*carry))
-        per_step = {k: v / steps for k, v in times.items()}
-
-        def traced(fn):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            kernels = sorted(((ev.self_device_time_total, ev.count, ev.key)
-                              for ev in prof.key_averages()
-                              if ev.device_type == DeviceType.CUDA),
-                             reverse=True)
-            busy = sum(k[0] for k in kernels) / 1e6
-            return dict(wall_s=wall, device_busy_s=busy,
-                        device_idle_share=1 - busy / wall,
-                        kernel_launches=sum(k[1] for k in kernels),
-                        top=[dict(device_us=u, count=c, name=k)
-                             for u, c, k in kernels[:15]])
-
-        eager = traced(lambda: explorer.eval_step(*carry))
-        graph = explorer.capture(carry)
-        graph(*carry)
-        graphed = traced(lambda: graph(*carry))
-    report["mprl_profile"] = dict(host_s_per_step=per_step, eager=eager,
-                                  graphed=graphed)
-    print(f"mprl profile (mprl_td, 500 cases): host s a step with a sync "
-          f"after each part {per_step}; eager step wall {eager['wall_s']:.4f}"
-          f" s, device busy {eager['device_busy_s']:.4f} s (idle share "
-          f"{eager['device_idle_share']:.3f}, {eager['kernel_launches']} "
-          f"launches); graphed step wall {graphed['wall_s']:.4f} s, busy "
-          f"{graphed['device_busy_s']:.4f} s (idle share "
-          f"{graphed['device_idle_share']:.3f})", flush=True)
-    for row in eager["top"][:10]:
-        print(f"  {row['device_us'] / 1e3:10.3f} ms  x{row['count']:<6d} "
-              f"{row['name'][:90]}", flush=True)
-
-
-def profile_phase(dev, report):
-    """Where one 8-step chunk of the slice's time goes: host time of each
-    section with a synchronise after it, the chunk's wall time without those
-    synchronises, and the profiler's device time by kernel over one more
-    chunk; then the wall and device time of one graphed chunk (the rebuild
-    eager, the steps one replay)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from relationalgraphlearning_tpu_torch.envs.orca import (
-        ORCAParams, centralized_orca_step_knn)
-
-    cfg = SLICE
-    pos = mega_crowd.initial_crowd(cfg["n"], device=dev)
-    vel = torch.zeros_like(pos)
-    goals = -pos
-    rad = torch.full((cfg["n"],), 0.3, device=dev)
-    vmax = torch.ones_like(rad)
-    act = torch.ones_like(rad, dtype=torch.bool)
-    net = bs.seeded_value_net("block", dev)
-    sections = ("rebuild", "orca", "value_net")
-
-    def chunk(times=None):
-        """One rebuild and its 8 steps; with ``times``, a synchronise closes
-        each section and its host time is added there."""
-        nonlocal pos, vel, goals, rad, vmax, act
-        t = time.perf_counter()
-
-        def close(section):
-            nonlocal t
-            if times is not None:
-                torch.cuda.synchronize()
-                times[section] += time.perf_counter() - t
-                t = time.perf_counter()
-
-        pos, (vel, goals, rad, vmax, act), cols, cols_orca, cand, em, _ = \
-            mega_crowd.rebuild(pos, (vel, goals, rad, vmax, act), cfg["K"],
-                               "block", cfg["block_B"], cfg["block_C"], True)
-        close("rebuild")
-        for _ in range(cfg["rebuild_every"]):
-            to = goals - pos
-            dist = torch.linalg.norm(to, dim=-1, keepdim=True)
-            pref = torch.where(dist > 1e-3, to / dist.clamp(min=1e-9), 0.0)
-            vel = centralized_orca_step_knn(pos, vel, rad, pref, vmax, act,
-                                            ORCAParams(), cfg["K"],
-                                            cols=cols_orca)
-            pos = pos + vel * mega_crowd.DT
-            close("orca")
-            with torch.no_grad():
-                states = torch.cat([pos, vel, rad[:, None]], -1)
-                net(states, cols, block_cand=cand, block_emask=em).mean()
-            close("value_net")
-
-    chunk()
-    torch.cuda.synchronize()
-    times = dict.fromkeys(sections, 0.0)
-    chunk(times)
-    t0 = time.perf_counter()
-    chunk()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    print(f"profile: one 8-step chunk {wall:.4f} s; host seconds with a "
-          f"sync after each section: {times}", flush=True)
-
-    def traced(fn):
-        """(device kernels by time, device busy s, the profiler) over one
-        call of ``fn``."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = sorted(((ev.self_device_time_total, ev.count, ev.key)
-                          for ev in prof.key_averages()
-                          if ev.device_type == DeviceType.CUDA),
-                         reverse=True)
-        return kernels, sum(k[0] for k in kernels) / 1e6, prof
-
-    kernels, busy, prof = traced(chunk)
-    report["profile"] = dict(
-        chunk_wall_s=wall, section_host_s=times,
-        device_busy_s=busy, device_idle_share=1 - busy / wall,
-        kernel_launches=sum(k[1] for k in kernels),
-        top=[dict(device_us=u, count=c, name=k) for u, c, k in kernels[:25]])
-    OUT_DIR.mkdir(exist_ok=True)
-    (OUT_DIR / "profile_table.txt").write_text(prof.key_averages().table(
-        sort_by="self_cuda_time_total", row_limit=40))
-    print(f"profile: device busy {busy:.4f} s of the chunk's {wall:.4f} s "
-          f"(idle share {1 - busy / wall:.3f}), "
-          f"{sum(k[1] for k in kernels)} kernel launches", flush=True)
-    for u, c, k in kernels[:10]:
-        print(f"  {u / 1e3:10.3f} ms  x{c:<6d} {k[:90]}", flush=True)
-
-    # the same chunk graphed: the rebuild eager, the 8 steps one replay
-    runner = mega_crowd.MegaCrowdRollout(
-        **{k: v for k, v in cfg.items() if k not in ("n", "steps")},
-        device=dev)
-    R = cfg["rebuild_every"]
-    runner(pos, R)                                   # the capture
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    runner(pos, R)
-    torch.cuda.synchronize()
-    wall_g = time.perf_counter() - t0
-    kernels_g, busy_g, _ = traced(lambda: runner(pos, R))
-    report["profile"]["graphed"] = dict(
-        chunk_wall_s=wall_g, device_busy_s=busy_g,
-        device_idle_share=1 - busy_g / wall_g,
-        top=[dict(device_us=u, count=c, name=k)
-             for u, c, k in kernels_g[:25]])
-    print(f"profile, graphed chunk: device busy {busy_g:.4f} s of "
-          f"{wall_g:.4f} s (idle share {1 - busy_g / wall_g:.3f}; eager "
-          f"{1 - busy / wall:.3f})", flush=True)
-
-
-def backend_phase(dev, report, rounds=6):
-    """The slice's eager rollout under each aggregation path of the value
-    net (block+kernel #1, plain block, gather, pallas = kernel #3), in turns
-    (ABCD DCBA ...), so that drift hits every path alike."""
-    paths = (("block+kernel", "block", True), ("block, plain", "block", False),
-             ("gather", "gather", False), ("pallas", "pallas", False))
-    runs = {label: [] for label, _, _ in paths}
-    order = [p for r in range(rounds) for p in (paths if r % 2 == 0
-                                                 else paths[::-1])]
-    for label, backend, packed in order:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mega_crowd.mega_crowd_rollout(**{**SLICE, "backend": backend,
-                                         "packed": packed}, device=dev,
-                                      graphed=False)
-        torch.cuda.synchronize()
-        runs[label].append(SLICE["n"] * SLICE["steps"]
-                           / (time.perf_counter() - t0))
-    report["backends"] = runs
-    medians = {k: statistics.median(v) for k, v in runs.items()}
-    print(f"backends, agent-steps/s, median of {rounds} runs each: "
-          f"{medians}; all runs: {runs}", flush=True)
-
-
 # ------------------------------------------------------------------ phase 9
 TRAIN_CONFIG = ROOT / "configs" / "icra_benchmark" / "mp_separate.py"
-TRAIN = dict(B=16, K=64, sgd_timed=(400, 100), collect_timed=2)
+TRAIN = dict(B=16, K=64)
 
 
 def _state_equal(what, a: dict, b: dict):
@@ -1797,8 +1597,8 @@ def _state_equal(what, a: dict, b: dict):
 
 def sgd_check(art, buffer, gen, tc, label):
     """One and then 8 captured SGD steps against as many eager ones from
-    the same state and indices, for SGD (imitation) and Adam (RL); then
-    steps/s of each mode in turns -> the rows."""
+    the same state and indices, for SGD (imitation) and Adam (RL) -> the
+    rows."""
     trainer = art.trainer
     rows = []
     for name, lr, use_td in (("sgd", tc.il_learning_rate, False),
@@ -1812,27 +1612,14 @@ def sgd_check(art, buffer, gen, tc, label):
             eager = trainer.state_dict()
             trainer.load_state(before)
             # n = 1 captures (the warm-up restored), then replays once
-            wall = bs.timed(lambda: trainer.optimize(buffer, idx, use_td,
-                                                   graphed=True))
+            wall = timed(lambda: trainer.optimize(buffer, idx, use_td,
+                                                graphed=True))
             row.setdefault("capture_s", wall)
             _state_equal(f"{name}: {n} graphed SGD steps vs eager",
                          eager, trainer.state_dict())
-        walls = {"eager": [], "graphed": []}
-        for mode in ("eager", "graphed", "graphed", "eager"):
-            steps = TRAIN["sgd_timed"][mode == "eager"]
-            idx = rb.sample_indices(buffer, gen, (steps, tc.batch_size))
-            walls[mode].append(bs.timed(lambda: trainer.optimize(
-                buffer, idx, use_td, graphed=mode == "graphed")) / steps)
-        row.update(sgd_steps_per_s=1 / statistics.median(walls["graphed"]),
-                   sgd_steps_per_s_eager=1 / statistics.median(
-                       walls["eager"]),
-                   step_ms=[1e3 * w for w in walls["graphed"]],
-                   step_ms_eager=[1e3 * w for w in walls["eager"]])
         print(f"{label} sgd[{name}]: graphed == eager over 1 and 8 steps "
               f"(params, target, optimizer state bit for bit); capture "
-              f"{row['capture_s']:.3f} s; {row['sgd_steps_per_s']:.0f} "
-              f"steps/s graphed, {row['sgd_steps_per_s_eager']:.0f} eager",
-              flush=True)
+              f"{row['capture_s']:.3f} s", flush=True)
         rows.append(row)
     return rows
 
@@ -1840,21 +1627,18 @@ def sgd_check(art, buffer, gen, tc, label):
 def collect_check(art, gen, offset, policy, label):
     """64 captured collection steps at B=16 against 64 eager ones from the
     same carry and draws (the demonstrator at ε = 0, ``policy`` at
-    ε = 0.5), bit for bit; env-steps/s of each mode in turns -> the rows."""
+    ε = 0.5), bit for bit: the checked graphed call replays the graph
+    that the one before it captured -> the rows."""
     B, K = TRAIN["B"], TRAIN["K"]
     rows = []
     for name, expl, eps in (("orca_demonstrator", art.demonstrator_explorer,
                              0.0), (policy, art.explorer, 0.5)):
         carry = expl.init_carry(B, offset)
         draws = art.explorer.draws(gen, K, B)
-        out = {}
-        walls = {"eager": [], "graphed": []}
-        first = bs.timed(lambda: out.update(graphed=expl.collect(
-            carry, K, offset, eps, draws, graphed=True)))
-        for mode in ("eager", "graphed", "graphed", "eager"):
-            walls[mode].append(bs.timed(lambda: out.update({
-                mode: expl.collect(carry, K, offset, eps, draws,
-                                   graphed=mode == "graphed")})))
+        expl.collect(carry, K, offset, eps, draws, graphed=True)
+        out = {mode: expl.collect(carry, K, offset, eps, draws,
+                                  graphed=mode == "graphed")
+               for mode in ("eager", "graphed")}
         for part, got, want in (("carry", out["graphed"][0], out["eager"][0]),
                                 ("trajectory", out["graphed"][1],
                                  out["eager"][1])):
@@ -1865,20 +1649,11 @@ def collect_check(art, gen, offset, policy, label):
         traj = out["eager"][1]
         episodes = int(traj.terminal.sum())
         explored = int((draws[1] < eps).sum())
-        env_steps = B * K
         row = dict(policy=name, epsilon=eps, B=B, steps=K,
-                   capture_s=first - statistics.median(walls["graphed"]),
-                   env_steps_per_s=env_steps / statistics.median(
-                       walls["graphed"]),
-                   env_steps_per_s_eager=env_steps / statistics.median(
-                       walls["eager"]),
                    episodes=episodes, explored_decisions=explored)
         print(f"{label} collect[{name}, eps {eps}]: {K} graphed steps == "
               f"eager, bit for bit ({episodes} episodes ended, "
-              f"{explored} exploring decisions); capture "
-              f"{row['capture_s']:.3f} s; {row['env_steps_per_s']:.0f} "
-              f"env-steps/s graphed, {row['env_steps_per_s_eager']:.0f} "
-              f"eager", flush=True)
+              f"{explored} exploring decisions)", flush=True)
         rows.append(row)
     return rows
 
@@ -2000,7 +1775,7 @@ def query_env_check(dev):
     offset, cases = sim.test_seed_offset, range(sim.test_size)
     walls, finals = {}, {}
     for mode in ("graphed", "eager"):  # the first call captures
-        walls[mode] = bs.timed(lambda: finals.update({mode: explorer.rollout(
+        walls[mode] = timed(lambda: finals.update({mode: explorer.rollout(
             offset, cases, graphed=mode == "graphed")}))
     for name, got, ref in zip(finals["eager"]._fields, finals["graphed"],
                               finals["eager"]):
@@ -2294,22 +2069,10 @@ def partition_phase(dev, flops, bw, report):
     rows = []
     with torch.no_grad():
         for method in ("ring", "allgather", "block_halo"):
-            base = None
             for D in PARTITION["ranks"]:
                 row = bs.partition_row(method, D, model, dev)
-                base = base or (row["medges_per_s"],
-                                row["medges_per_s_graphed"])
-                row["scaling_efficiency_vs_D1"] = (
-                    row["medges_per_s"] / (base[0] * D))
-                row["scaling_efficiency_vs_D1_graphed"] = (
-                    row["medges_per_s_graphed"] / (base[1] * D))
                 rows.append(row)
-                print(f"partitioned {method} D={D}: "
-                      f"{row['medges_per_s_graphed']:.2f} Medges/s graphed "
-                      f"(efficiency "
-                      f"{row['scaling_efficiency_vs_D1_graphed']:.3f}), "
-                      f"{row['medges_per_s']:.2f} eager (efficiency "
-                      f"{row['scaling_efficiency_vs_D1']:.3f}), capture "
+                print(f"partitioned {method} D={D}: capture "
                       f"{row['capture_s']:.2f} s, graph == eager, max |err| "
                       f"{row['max_abs_err']:.3g} ({row['err_over_limit']:.3g}"
                       f" of the limit), halo {row['halo']}", flush=True)
@@ -2323,22 +2086,10 @@ def partition_phase(dev, flops, bw, report):
                           for k, v in k2["timing"].items()), flush=True)
         net = bs.seeded_value_net("block", dev)
         mega = []
-        base = None
         for D in MEGA["ranks"]:
             row = bs.mega_row(D, net, dev)
-            base = base or (row["agent_steps_per_s"],
-                            row["agent_steps_per_s_graphed"])
-            row["scaling_efficiency_vs_D1"] = (
-                row["agent_steps_per_s"] / (base[0] * D))
-            row["scaling_efficiency_vs_D1_graphed"] = (
-                row["agent_steps_per_s_graphed"] / (base[1] * D))
             mega.append(row)
-            print(f"partitioned mega D={D}: "
-                  f"{row['agent_steps_per_s_graphed']:.0f} agent-steps/s "
-                  f"graphed (efficiency "
-                  f"{row['scaling_efficiency_vs_D1_graphed']:.3f}), "
-                  f"{row['agent_steps_per_s']:.0f} eager (efficiency "
-                  f"{row['scaling_efficiency_vs_D1']:.3f}), capture "
+            print(f"partitioned mega D={D}: capture "
                   f"{row['capture_s']:.2f} s, graph == eager, band_cov "
                   f"{row['band_cov']}, win_cov {row['win_cov']}, overflow "
                   f"{row['overflow']:.0f}, lost {row['lost']:.0f}, max "
@@ -2353,9 +2104,7 @@ def partition_phase(dev, flops, bw, report):
               f"({gloo['seconds']:.1f} s)", flush=True)
     seconds = time.perf_counter() - t0
     report["partition"] = dict(rows=rows, kernel_2=k2, mega=mega,
-                               mega_small=small, gloo=gloo, seconds=seconds,
-                               note="D ranks as threads on one card: "
-                                    "plumbing, not scaling")
+                               mega_small=small, gloo=gloo, seconds=seconds)
     print(f"phase 11: {seconds:.1f} s", flush=True)
     halo1 = {f"block_halo@D={r['D']}":
              r["launches"]["fused_block_attention_packed_shared"]
@@ -2371,8 +2120,7 @@ def partition_phase(dev, flops, bw, report):
 # .py:44-98: collect, push, sample, one dp/tp step) at the meshes it picks
 # for 2, 4 and 8 devices, at the full width of mp_separate (its 16 train
 # envs and minibatch of 100), 2 collection steps.
-DP = dict(meshes=((2, 1), (2, 2), (4, 2)), B=16, K=2, eps=0.1,
-          sgd_timed=(200, 5))
+DP = dict(meshes=((2, 1), (2, 2), (4, 2)), B=16, K=2, eps=0.1)
 DP_LOSS_REL, DP_PARAM_ATOL = 1e-4, 1e-4     # tests/test_parallel.py:142-147
 # cli.train --multihost against --mesh_data 2 at toy counts (a config file
 # in the repository's form; the port's loader reads it as its own)
@@ -2423,10 +2171,10 @@ def dp_ranks_agree(par, what):
 
 
 def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
-                dev, gen):
+                dev):
     """One mesh: the split collection against one device's, one SGD step
     (the imitation optimizer) against one device's, graphed == eager for
-    SGD and Adam, the ranks identical; Adam steps/s in turns E G G E."""
+    SGD and Adam, the ranks identical."""
     tc, sim = config.train, config.env.sim
     mesh = make_mesh(D, M, device=dev)
     label = f"dp/tp ({D}, {M})"
@@ -2434,7 +2182,7 @@ def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
     collect = sharding.make_parallel_collect(art.explorer, mesh, DP["K"],
                                              sim.train_seed_offset)
     res = {}
-    collect_s = bs.timed(lambda: res.update(out=collect(
+    collect_s = timed(lambda: res.update(out=collect(
         carry, DP["eps"], draws, graphed=True)))
     _, traj = res["out"]
     for name, g, w in zip(want._fields, traj, want):
@@ -2450,7 +2198,7 @@ def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
             par = sharding.ParallelTrainer(
                 dp_fresh(config, state, dev, name, lr).trainer, mesh)
             aux = {}
-            wall = bs.timed(lambda: aux.update(a=par.optimize(
+            wall = timed(lambda: aux.update(a=par.optimize(
                 buffer, idx, use_td, graphed=mode == "graphed")))
             runs[mode] = (par, aux["a"], wall)
         par, aux, capture_s = runs["graphed"]
@@ -2468,27 +2216,12 @@ def dp_mesh_row(config, state, carry, draws, want, buffer, idx, one, D, M,
                 raise RuntimeError(f"{label}: the step against one device: "
                                    f"value loss rel {rel}, params {err}")
             sub.update(value_loss_rel_vs_one=rel, max_param_err_vs_one=err)
-        else:   # Adam steps/s in turns, the graph captured above
-            walls = {"eager": [], "graphed": []}
-            for mode in ("eager", "graphed", "graphed", "eager"):
-                steps = DP["sgd_timed"][mode == "eager"]
-                ti = rb.sample_indices(buffer, gen, (steps, tc.batch_size))
-                p = runs[mode][0]
-                walls[mode].append(bs.timed(lambda: p.optimize(
-                    buffer, ti, use_td, graphed=mode == "graphed")) / steps)
-            sub.update(sgd_steps_per_s=1 / statistics.median(
-                walls["graphed"]), sgd_steps_per_s_eager=1 / statistics
-                .median(walls["eager"]), step_ms=[1e3 * w for w in
-                                                  walls["graphed"]],
-                step_ms_eager=[1e3 * w for w in walls["eager"]])
         row[name] = sub
     print(f"{label}: split collection == one device (B={DP['B']}, "
           f"{DP['K']} steps); SGD step vs one device: value loss rel "
           f"{row['sgd']['value_loss_rel_vs_one']:.2e}, params "
           f"{row['sgd']['max_param_err_vs_one']:.2e}; graphed == eager for "
-          f"SGD and Adam, ranks identical; Adam "
-          f"{row['adam']['sgd_steps_per_s']:.0f} steps/s graphed, "
-          f"{row['adam']['sgd_steps_per_s_eager']:.1f} eager (capture "
+          f"SGD and Adam, ranks identical (Adam's capture "
           f"{row['adam']['capture_s']:.2f} s)", flush=True)
     return row
 
@@ -2652,22 +2385,18 @@ def dp_phase(dev, report):
     one = dp_fresh(config, state, dev, "sgd", tc.il_learning_rate).trainer
     one_aux = one.optimize(buffer, idx, False, graphed=False)
     rows = [dp_mesh_row(config, state, carry, draws, want, buffer, idx,
-                        (one.state_dict(), one_aux), D, M, dev, gen)
+                        (one.state_dict(), one_aux), D, M, dev)
             for D, M in DP["meshes"]]
     cli = dp_cli_checks(dev)
     orca = native_orca_check(dev)
     gif = render_check(dev)
     launches = _only_orca("the dp/tp path")
-    one_device = {r["optimizer"]: r["sgd_steps_per_s"]
-                  for r in report.get("train", {}).get("sgd", [])}
     seconds = time.perf_counter() - t0
     report["dp"] = dict(rows=rows, cli=cli, native_orca=orca, render=gif,
                         launches=launches, seconds=seconds,
-                        one_device_steps_per_s_phase9=one_device,
                         parameters=sum(p.numel() for p in art.trainer.params),
                         note="data x model ranks as threads on one card")
-    print(f"phase 12: {seconds:.1f} s (one-device Adam steps/s in phase 9: "
-          f"{one_device.get('adam')})", flush=True)
+    print(f"phase 12: {seconds:.1f} s", flush=True)
 
 
 # ----------------------------------------------------------------- phase 13
@@ -2924,16 +2653,16 @@ def orca_phase(dev, flops, bw, report):
     profiling.reset()
 
     # launches: one a crowd step (the kNN step) and one an env step (B=500)
-    orca_op.reset_launch_counts()
+    captured.reset_launch_counts()
     orca_env.centralized_orca_step_knn(pos, vel, rad, pref, vmax, act,
                                        params, ORCA["K"], cols=cols)
-    crowd_launches = orca_op.orca_velocity.launches
+    crowd_launches = captured.launch_counts()[ORCA_KERNEL]
     config = load_config_module(str(TRAIN_CONFIG))
     env = CrowdSim(config.env, device=dev)
     state, _ = env.reset(range(500), config.env.sim.test_seed_offset)
-    orca_op.reset_launch_counts()
+    captured.reset_launch_counts()
     env.step(state, torch.zeros(500, 2, device=dev))
-    env_launches = orca_op.orca_velocity.launches
+    env_launches = captured.launch_counts()[ORCA_KERNEL]
     torch.cuda.synchronize()
     if crowd_launches != 1 or env_launches != 1:
         raise RuntimeError(f"orca_velocity launches: {crowd_launches} a "
@@ -3104,13 +2833,6 @@ def bench_phase(dev, report):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also break one rollout chunk's time down, time "
-                         "the rollout under each aggregation path and break "
-                         "one MP-RGL evaluation step down")
-    args = ap.parse_args()
-
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -3187,10 +2909,6 @@ def main() -> int:
             row["halo"]["launches"] = (
                 partition["halo1"] if row["name"].endswith("shared") else
                 {"block_halo_attention@D=4": row["launches"]})
-    if args.profile:
-        profile_phase(dev, report)
-        backend_phase(dev, report)
-        mprl_profile_phase(dev, report)
 
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

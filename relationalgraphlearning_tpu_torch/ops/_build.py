@@ -7,6 +7,16 @@ of the flags, so an edited source builds anew. Libraries go to the
 git-ignored ``_build/`` at first use. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together (the span ``ops.build``;
 the counters ``ops.builds.compiled`` and ``ops.builds.cached``).
+
+A wrapper module declares its source once as a ``Library``: the C entry
+points with their argument types, and the kernels it launches. Nothing is
+built or loaded until a wrapper first calls it on CUDA tensors.
+
+The launch registry: every kernel wrapper counts its launches here, by
+kernel name (``count_launch``), from the import of its module on.
+``launch_counts`` reads every kernel's count, ``reset_launch_counts`` zeroes
+them all. The counts move in Python at each launch, so they move while a
+CUDA graph is captured and never at a replay (``captured.Graphed``).
 """
 
 from __future__ import annotations
@@ -32,14 +42,27 @@ MAX_SMEM_BYTES = 232_448
 
 _loaded: dict = {}
 _load_lock = threading.Lock()   # ranks run as threads load at once
+_launches: dict = {}            # kernel name -> launches
 _count_lock = threading.Lock()  # ... and count their launches at once
 
 
-def count_launch(wrapper) -> None:
-    """One more launch on ``wrapper.launches`` (ranks as threads count
-    into the same counter during one capture)."""
+def count_launch(kernel: str) -> None:
+    """One more launch of ``kernel`` (ranks as threads count into the same
+    registry during one capture)."""
     with _count_lock:
-        wrapper.launches += 1
+        _launches[kernel] += 1
+
+
+def launch_counts() -> dict:
+    """Every registered kernel's launches, by name."""
+    with _count_lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for kernel in _launches:
+            _launches[kernel] = 0
 
 
 def nvcc() -> str:
@@ -102,6 +125,32 @@ def load(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(source)))
             _loaded[source] = lib
         return lib
+
+
+class Library:
+    """``csrc/<source>``'s library, built and loaded at the first call.
+
+    ``entry_points``: each C function's argument types; every entry point
+    returns a CUDA error code (``check_launch``). ``kernels``: the names the
+    module's wrappers count their launches under, registered at zero here.
+    """
+
+    def __init__(self, source: str, kernels, **entry_points):
+        self.source = CSRC / source
+        self._entry_points = entry_points
+        self._lib = None
+        with _count_lock:
+            for kernel in kernels:
+                _launches.setdefault(kernel, 0)
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.source)
+            for name, argtypes in self._entry_points.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            self._lib = lib
+        return self._lib
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -21,7 +21,8 @@ qb and xg are both float32 or both bfloat16. The unshifted softmax needs
 The wrapper runs the plain version for CPU tensors and launches the kernel
 (``csrc/ab_block_attention.cu``: the window streams through shared memory in
 tiles, both products on the tensor cores, float32 as 3xTF32) for CUDA
-tensors, or raises. ``ab_block_attention.launches`` counts its launches.
+tensors, or raises. Its launches count as ``ab_block_attention``
+(``_build.launch_counts``).
 """
 
 from __future__ import annotations
@@ -35,21 +36,12 @@ from relationalgraphlearning_tpu_torch.ops import _build
 from relationalgraphlearning_tpu_torch.ops.fused_block import (
     _MAX_FEATURES, unpack_emask)
 
-SOURCE = _build.CSRC / "ab_block_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
-        lib.aba_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.aba_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_lib = _build.Library(
+    "ab_block_attention.cu", kernels=("ab_block_attention",),
+    aba_launch=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p])
 
 
 # ------------------------------------------------------------ plain version
@@ -104,7 +96,7 @@ def ab_block_attention(qb: Tensor, xg: Tensor, mbits: Tensor,
     if not 1 <= d <= _MAX_FEATURES:
         raise ValueError(f"d={d}: the kernel takes 1..128")
     out = torch.empty_like(qb)
-    lib = _library()
+    lib = _lib()
     with torch.cuda.device(qb.device):
         err = lib.aba_launch(
             qb.data_ptr(), xg.data_ptr(), mbits.data_ptr(), out.data_ptr(),
@@ -112,16 +104,5 @@ def ab_block_attention(qb: Tensor, xg: Tensor, mbits: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"ab_block_attention (C={C}, d={d}, "
                         f"{qb.dtype})")
-    _build.count_launch(ab_block_attention)
+    _build.count_launch("ab_block_attention")
     return out
-
-
-ab_block_attention.launches = 0
-
-
-def reset_launch_counts() -> None:
-    ab_block_attention.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"ab_block_attention": ab_block_attention.launches}

@@ -23,14 +23,13 @@ the denominator the sum of the float32 ``e``, the value product over
 epilogue in float32, the output rounded to bfloat16.
 
 Every wrapper runs the plain PyTorch version for CPU tensors and launches the
-kernel for CUDA tensors, or raises. ``launches`` on each kernel wrapper counts
-its kernel launches.
+kernel for CUDA tensors, or raises. Each kernel wrapper's launches count
+under its name (``_build.launch_counts``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 from torch import Tensor
@@ -44,29 +43,14 @@ _LAUNCH = {torch.float32: "fba_launch", torch.bfloat16: "fba_launch_bf16"}
 _MAX_FEATURES = 128         # kMaxF * 32 in the CUDA source
 ROWS_PER_CTA = 16           # kRowsPerCta in csrc/block_attention.cuh
 
-SOURCE = _build.CSRC / "fused_block_attention.cu"
-
-_lib = None
-# ranks run as threads may launch at once (parallel/comm.py): a count's
-# read-add-write holds this lock
-_count_lock = threading.Lock()
-
-
-# ------------------------------------------------------------------ the build
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
-        lib.fba_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        lib.fba_launch.restype = ctypes.c_int
-        lib.fba_launch_bf16.argtypes = lib.fba_launch.argtypes
-        lib.fba_launch_bf16.restype = ctypes.c_int
-        lib.fba_dense_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.fba_dense_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_FBA_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_lib = _build.Library(
+    "fused_block_attention.cu",
+    kernels=("fused_block_attention_packed_shared",
+             "fused_block_attention_packed", "fused_block_attention"),
+    fba_launch=_FBA_ARGS, fba_launch_bf16=_FBA_ARGS,
+    fba_dense_launch=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p])
 
 
 # ------------------------------------------------------------ mask packing
@@ -189,7 +173,7 @@ def _launch(qb, x, v, cand, mbits, shared, epilogue, stable) -> Tensor:
     nb, B, d = qb.shape
     dv = v.shape[1]
     out = torch.empty((nb, B, dv), dtype=qb.dtype, device=qb.device)
-    lib = _library()
+    lib = _lib()
     with torch.cuda.device(qb.device):
         err = getattr(lib, _LAUNCH[qb.dtype])(
             qb.data_ptr(), x.data_ptr(), v.data_ptr(), cand.data_ptr(),
@@ -211,8 +195,7 @@ def fused_block_attention_packed_shared(
         return fused_block_attention_packed_shared_plain(
             qb, x, cand, mbits, epilogue, stable)
     out = _launch(qb, x, x, cand, mbits, True, epilogue, stable)
-    with _count_lock:
-        _build.count_launch(fused_block_attention_packed_shared)
+    _build.count_launch("fused_block_attention_packed_shared")
     return out
 
 
@@ -224,8 +207,7 @@ def fused_block_attention_packed(
         return fused_block_attention_packed_plain(
             qb, x, v, cand, mbits, epilogue, stable)
     out = _launch(qb, x, v, cand, mbits, False, epilogue, stable)
-    with _count_lock:
-        _build.count_launch(fused_block_attention_packed)
+    _build.count_launch("fused_block_attention_packed")
     return out
 
 
@@ -268,20 +250,15 @@ def fused_block_attention(qb: Tensor, xg: Tensor, vg: Tensor,
     if not (1 <= d <= _MAX_FEATURES and 1 <= dv <= _MAX_FEATURES):
         raise ValueError(f"d={d}, dv={dv}: the kernel takes 1..128")
     out = torch.empty((nb, B, dv), dtype=torch.float32, device=qb.device)
-    lib = _library()
+    lib = _lib()
     with torch.cuda.device(qb.device):
         err = lib.fba_dense_launch(
             qb.data_ptr(), xg.data_ptr(), vg.data_ptr(), emask.data_ptr(),
             out.data_ptr(), nb, B, C, d, dv,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"fused_block_attention r3 (C={C}, d={d})")
-    _build.count_launch(fused_block_attention)
+    _build.count_launch("fused_block_attention")
     return out
-
-
-fused_block_attention_packed_shared.launches = 0
-fused_block_attention_packed.launches = 0
-fused_block_attention.launches = 0
 
 
 # ------------------------------------------------------------- entry points
@@ -350,17 +327,3 @@ def block_attention_fused_aligned(
                                                    mbits, epilogue, stable)
     return block_attention_fused(q, x, v, aligned_cand(starts, align), mbits,
                                  epilogue, stable)
-
-
-def reset_launch_counts() -> None:
-    fused_block_attention_packed_shared.launches = 0
-    fused_block_attention_packed.launches = 0
-    fused_block_attention.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"fused_block_attention_packed_shared":
-            fused_block_attention_packed_shared.launches,
-            "fused_block_attention_packed":
-            fused_block_attention_packed.launches,
-            "fused_block_attention": fused_block_attention.launches}

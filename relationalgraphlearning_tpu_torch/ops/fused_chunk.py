@@ -32,20 +32,10 @@ from relationalgraphlearning_tpu_torch.ops.fused_block import (
     _EPILOGUES, _MAX_FEATURES, cta_smem_bytes, masked_softmax_agg_plain,
     pack_emask)
 
-SOURCE = _build.CSRC / "chunk_block_attention.cu"
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
-        lib.cba_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-        lib.cba_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_lib = _build.Library(
+    "chunk_block_attention.cu", kernels=("chunk_block_attention",),
+    cba_launch=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p])
 
 
 # --------------------------------------------------------------- the window
@@ -196,7 +186,7 @@ def chunk_block_attention(q: Tensor, x: Tensor, chunk_starts: Tensor,
     ntot = nch * chunk + ct
     _build.check_smem(cta_smem_bytes(ntot), f"a window of {ntot} slots")
     out = torch.empty((n, d), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.cba_launch(
             q.data_ptr(), x.data_ptr(), chunk_starts.data_ptr(),
@@ -205,16 +195,5 @@ def chunk_block_attention(q: Tensor, x: Tensor, chunk_starts: Tensor,
             _EPILOGUES[epilogue], torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"chunk_block_attention (ntot={ntot}, "
                         f"d={d}, groups={groups})")
-    _build.count_launch(chunk_block_attention)
+    _build.count_launch("chunk_block_attention")
     return out
-
-
-chunk_block_attention.launches = 0
-
-
-def reset_launch_counts() -> None:
-    chunk_block_attention.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"chunk_block_attention": chunk_block_attention.launches}

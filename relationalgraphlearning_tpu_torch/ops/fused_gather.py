@@ -11,7 +11,8 @@ masked row averages its neighbours uniformly, and a duplicate neighbour
 counts once per occurrence.
 
 The wrapper runs the plain chain for CPU tensors and launches the kernel for
-CUDA tensors, or raises. ``fused_gather_attention.launches`` counts launches.
+CUDA tensors, or raises. Its launches count as ``fused_gather_attention``
+(``_build.launch_counts``).
 """
 
 from __future__ import annotations
@@ -25,24 +26,15 @@ from torch import Tensor
 
 from relationalgraphlearning_tpu_torch.ops import _build, sparse
 
-SOURCE = _build.CSRC / "fused_gather_attention.cu"
 _MAX_FEATURES = 128         # kMaxF * 32 in the CUDA source
 
-_lib = None
+_lib = _build.Library(
+    "fused_gather_attention.cu", kernels=("fused_gather_attention",),
+    fga_launch=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p])
 # The last ``cols`` proven in range, with its version: a graph is reused
 # for many layers and steps, and its check costs a host synchronisation.
 _checked = (None, -1, -1)
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
-        lib.fga_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.fga_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def check_ids(cols: Tensor, n: int) -> None:
@@ -99,18 +91,15 @@ def fused_gather_attention(q: Tensor, x: Tensor, v: Tensor, cols: Tensor,
     # is then read once, for its score and for its share of the output
     shared = x.data_ptr() == v.data_ptr() and x.shape == v.shape
     out = torch.empty((nq, dv), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.fga_launch(
             q.data_ptr(), x.data_ptr(), v.data_ptr(), cols.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), nq, K,
             d, dv, int(shared), torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"fused_gather_attention (K={K}, d={d})")
-    _build.count_launch(fused_gather_attention)
+    _build.count_launch("fused_gather_attention")
     return out
-
-
-fused_gather_attention.launches = 0
 
 
 def fused_neighbor_attention(q: Tensor, x: Tensor, v: Tensor, cols: Tensor,
@@ -119,11 +108,3 @@ def fused_neighbor_attention(q: Tensor, x: Tensor, v: Tensor, cols: Tensor,
     relation queries, x [n, d] keys, v [n, dv] messages, cols [n, K],
     mask [n, K] → [n, dv], through kernel #3 on the card."""
     return fused_gather_attention(q, x, v, cols, mask)
-
-
-def reset_launch_counts() -> None:
-    fused_gather_attention.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"fused_gather_attention": fused_gather_attention.launches}

@@ -14,11 +14,11 @@ p_i/v_i/pref_vel [..., 2], r_i/max_speed [...], p_j/v_j [..., M, 2],
 r_j/valid [..., M], 1 <= M <= 64, float32 (``valid`` bool), and reads each
 operand through its strides, so an ``expand``ed neighbour table is not
 copied. It raises on anything else; it never falls back.
-``orca_velocity.launches`` counts launches. The kernel adds, on every
-launch and replay, the agents that took linearProgram3 into a per-device
-int64 that ``utils/profiling.py`` reads in a traced run as the counter
-``orca.lp3_agents``. The agents solved need no counter: a launch solves
-every agent of its leading shape.
+Its launches count as ``orca_velocity`` (``_build.launch_counts``). The
+kernel adds, on every launch and replay, the agents that took
+linearProgram3 into a per-device int64 that ``utils/profiling.py`` reads in
+a traced run as the counter ``orca.lp3_agents``. The agents solved need no
+counter: a launch solves every agent of its leading shape.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from torch import Tensor
 from relationalgraphlearning_tpu_torch.ops import _build
 from relationalgraphlearning_tpu_torch.utils import profiling
 
-SOURCE = _build.CSRC / "orca_velocity.cu"
 MAX_NEIGHBOURS = 64     # the largest instantiation in the source
 LEAD_DIMS = 4           # kLead in the source
 EPS = 1e-5              # envs/orca.py's _EPS, as the kernel compares with it
@@ -45,21 +44,13 @@ _TRAILING = dict(p_i=(0, 1), v_i=(0, 1), r_i=(0, 0), pref_vel=(0, 1),
                  valid=(1, 0))
 OPERANDS = tuple(_TRAILING)
 
-_lib = None
+_lib = _build.Library(
+    "orca_velocity.cu", kernels=("orca_velocity",),
+    orca_velocity_launch=[ctypes.c_void_p] * 3
+    + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_float] * 5
+    + [ctypes.c_void_p] * 3)
 _lp3: dict = {}         # device -> int64, the agents through LP3
 _lp3_lock = threading.Lock()  # ranks run as threads launch at once
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
-        lib.orca_velocity_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int]
-            + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3)
-        lib.orca_velocity_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _counter(device: torch.device) -> Tensor:
@@ -168,7 +159,7 @@ def orca_velocity(p_i: Tensor, v_i: Tensor, r_i: Tensor, pref_vel: Tensor,
     n = math.prod(lead)
     if n == 0:
         return out
-    lib = _library()
+    lib = _lib()
     lp3 = _counter(device)
     ptrs = (ctypes.c_void_p * len(OPERANDS))(
         *(t.data_ptr() for t in ops.values()))
@@ -182,16 +173,5 @@ def orca_velocity(p_i: Tensor, v_i: Tensor, r_i: Tensor, pref_vel: Tensor,
             out.data_ptr(), lp3.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"orca_velocity (n={n}, M={M})")
-    _build.count_launch(orca_velocity)
+    _build.count_launch("orca_velocity")
     return out
-
-
-orca_velocity.launches = 0
-
-
-def reset_launch_counts() -> None:
-    orca_velocity.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"orca_velocity": orca_velocity.launches}

@@ -8,7 +8,8 @@ for every pass. It is a measurement of the card, not a kernel of the
 system's path: no TPU kernel stands behind it.
 
 The wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors, or raises; ``fma_chain.launches`` counts launches.
+for CUDA tensors, or raises; its launches count as ``fma_chain``
+(``_build.launch_counts``).
 """
 
 from __future__ import annotations
@@ -20,22 +21,13 @@ from torch import Tensor
 
 from relationalgraphlearning_tpu_torch.ops import _build
 
-SOURCE = _build.CSRC / "roofline.cu"
 # x = x * MUL + ADD, the reference's constants (as float32 on both sides)
 MUL, ADD = 1.0000001, 1e-9
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load(SOURCE)
-        lib.fma_chain_launch.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.fma_chain_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+_lib = _build.Library(
+    "roofline.cu", kernels=("fma_chain",),
+    fma_chain_launch=[ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p])
 
 
 def fma_chain_plain(x: Tensor, fmas: int = 128, passes: int = 64) -> Tensor:
@@ -54,22 +46,11 @@ def fma_chain(x: Tensor, fmas: int = 128, passes: int = 64) -> Tensor:
         return fma_chain_plain(x, fmas, passes)
     _build.check_tensors(x.device, x=(x, torch.float32))
     out = torch.empty_like(x)
-    lib = _library()
+    lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.fma_chain_launch(x.data_ptr(), out.data_ptr(), x.numel(),
                                    fmas, passes,
                                    torch.cuda.current_stream().cuda_stream)
     _build.check_launch(lib, err, f"fma_chain (n={x.numel()})")
-    _build.count_launch(fma_chain)
+    _build.count_launch("fma_chain")
     return out
-
-
-fma_chain.launches = 0
-
-
-def reset_launch_counts() -> None:
-    fma_chain.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"fma_chain": fma_chain.launches}

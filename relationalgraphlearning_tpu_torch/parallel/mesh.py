@@ -155,8 +155,7 @@ class MeshGraph:
         with torch.cuda.graph(self.graph, stream=side,
                               capture_error_mode="relaxed"):
             self.outputs = run()
-        after = captured.launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
+        self.launches = captured.launches_since(before)
 
     def __call__(self, *row_sharded):
         new = tree_leaves(tuple(row_sharded))

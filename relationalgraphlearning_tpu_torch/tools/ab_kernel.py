@@ -37,13 +37,15 @@ from torch import Tensor
 
 from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch.captured import Graphed
-from relationalgraphlearning_tpu_torch.ops import ab_block, block_graph
-from relationalgraphlearning_tpu_torch.ops import fused_chunk
+from relationalgraphlearning_tpu_torch.ops import (
+    _build, ab_block, block_graph, fused_chunk)
 from relationalgraphlearning_tpu_torch.ops.fused_block import pack_emask
 
 N, K, D = 8192, 16, 64
 NCH, CT = 2, 288            # the chunked fetch's chunks and tail slots
 TAIL_FROM = 320             # TAILSIM: slots frozen at iteration 0
+# the kernels the variants run (#6, and #4 for the chunked fetch)
+_KERNELS = ("ab_block_attention", "chunk_block_attention")
 
 
 def make_kernel(B: int, C: int, d: int, *, div_after: bool = False,
@@ -143,7 +145,8 @@ def run(rounds: int = 7, reps: int = 30, B: int = 256, C: int = 544,
         inner: int = 100, device="cuda", n: int = N,
         finals: dict | None = None, graphed: bool | None = None) -> list:
     """Warm every variant up, then time them in turns, ``rounds`` times
-    ``reps`` chain runs each with a synchronise after each variant's reps.
+    ``reps`` chain runs each with a synchronise after each variant's reps
+    (``rounds`` = 0: the checked runs alone, and no rates).
 
     ``graphed`` (default: on the card) captures each variant's chain once as
     a CUDA graph after its checked eager run; each turn then times ``reps``
@@ -169,12 +172,11 @@ def run(rounds: int = 7, reps: int = 30, B: int = 256, C: int = 544,
     for name, (f, dtype) in table.items():
         inputs[name] = h0.to(dtype)
         _sync(device)
-        ab_block.reset_launch_counts()
-        fused_chunk.reset_launch_counts()
+        _build.reset_launch_counts()
         out = f(inputs[name], cand, mbits)
         _sync(device)
-        launches[name] = {**ab_block.launch_counts(),
-                          **fused_chunk.launch_counts()}
+        counts = _build.launch_counts()
+        launches[name] = {k: counts[k] for k in _KERNELS}
         outs[name] = out
         extra[name] = dict(graph_launches=None, replay_err=None)
         if graphed:
@@ -199,16 +201,21 @@ def run(rounds: int = 7, reps: int = 30, B: int = 256, C: int = 544,
         times = eager
     records = [chunk]
     for name, ts in times.items():
-        med, srt = statistics.median(ts), sorted(ts)
+        rates = {}
+        if rounds:
+            med, srt = statistics.median(ts), sorted(ts)
+            rates = dict(
+                gedges_s=n * K * inner / med / 1e9,
+                # the fastest round is the least disturbed estimate of the
+                # device, the median the sustained number
+                gedges_s_best=n * K * inner / srt[0] / 1e9,
+                iqr_pct=100 * (srt[len(ts) * 3 // 4] - srt[len(ts) // 4])
+                / med,
+                gedges_s_eager=n * K * inner
+                / statistics.median(eager[name]) / 1e9)
         records.append(dict(
-            variant=name, B=B, C=C, gedges_s=n * K * inner / med / 1e9,
-            # the fastest round is the least disturbed estimate of the
-            # device, the median the sustained number
-            gedges_s_best=n * K * inner / srt[0] / 1e9,
-            iqr_pct=100 * (srt[len(ts) * 3 // 4] - srt[len(ts) // 4]) / med,
-            gedges_s_eager=n * K * inner / statistics.median(eager[name])
-            / 1e9, graphed=graphed, coverage=float(cov),
-            launches=launches[name], **extra[name]))
+            variant=name, B=B, C=C, **rates, graphed=graphed,
+            coverage=float(cov), launches=launches[name], **extra[name]))
     return records
 
 

@@ -19,9 +19,9 @@ one untimed run (``bench_scaling.py:75-87``, ``:131-136``). Prints one JSON
 line a (method, D) with the reference's keys, or one a D with ``--mega``.
 
 The checked rows of ``chip_smoke.py``'s phase 11 live here too
-(``partition_row``, ``mega_row``: eager and graphed in turns, launches
+(``partition_row``, ``mega_row``: one eager run and one graph, launches
 counted, graphed == eager bit for bit, each forward against one device),
-so that the protocol has one home.
+so that the protocol has one home; ``main`` times it.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import argparse
 import copy
 import json
 import math
-import statistics
 import time
 
 import torch
@@ -48,12 +47,10 @@ from relationalgraphlearning_tpu_torch.parallel import partitioned_build as pb
 from relationalgraphlearning_tpu_torch.parallel.mesh import make_mesh
 from relationalgraphlearning_tpu_torch.tools import bench_extra as be
 
-# bench_scaling.py's protocol (measure :20-90, measure_mega :93-146) as
-# chip_smoke.py's phase 11 runs it, with fewer timed runs (it takes 3), in
-# turns E G G E: the eager ranks' threads contend for the host, and D=8's
-# eager mega run takes ~12 s on one card; a mega turn is one run
+# bench_scaling.py's protocol (measure :20-90, measure_mega :93-146) at
+# the sizes chip_smoke.py's phase 11 checks
 PARTITION = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, K=16, inner=8, B=128,
-                 C=448, reps=2, graph_reps=10)
+                 C=448)
 MEGA = dict(ranks=(1, 2, 4, 8), n_per_rank=2048, steps=16, R=8, n_cap=2688,
             B=128, C=512, K=16, K_orca=10, mig_cap=256)
 PARTITION_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_parallel.py:99-100
@@ -62,15 +59,6 @@ MEGA_VMEAN_FULL = 1e-3      # |vmean| at full size, against one device
 # a replay against the eager run on the same inputs: the same kernels in
 # the same order, so the same bits
 REPLAY_TOL = dict(rtol=0, atol=0)
-
-
-def timed(fn) -> float:
-    """Wall seconds of ``fn``, between synchronises of the card."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
 
 
 def seeded_value_net(backend: str, dev, seed: int = 1) -> SparseValueNet:
@@ -121,22 +109,18 @@ def partition_inputs(D, method, dev, seed=0, cfg=None):
 
 
 def partition_row(method, D, model, dev):
-    """One row of bench_scaling.measure: the eager ranks (their launches
-    counted) and the ranks captured as one CUDA graph (``Mesh.capture``),
-    the graph equal to the eager run bit for bit, timed in turns E G G E."""
+    """One row of bench_scaling.measure, checked: the eager ranks (their
+    launches counted) and the ranks captured as one CUDA graph
+    (``Mesh.capture``), the graph equal to the eager run bit for bit."""
     cfg = PARTITION
     states, cols, cand, mbits, halo = partition_inputs(D, method, dev)
     n = states.shape[0]
     mesh = make_mesh(data=D, device=dev)
     a, b = (cand, mbits) if method == "block_halo" else (cols, None)
     rep = (model, method, halo, cfg["inner"])
-
-    def run():
-        return mesh.run(partition_chain_rank, replicated=rep,
-                        row_sharded=(states, a, b))
-
     captured.reset_launch_counts()
-    eager_out = run()
+    eager_out = mesh.run(partition_chain_rank, replicated=rep,
+                         row_sharded=(states, a, b))
     torch.cuda.synchronize()
     launches = captured.launch_counts()
     want = {k: 0 for k in launches}
@@ -156,14 +140,6 @@ def partition_row(method, D, model, dev):
     torch.testing.assert_close(graph(states, a, b), eager_out, **REPLAY_TOL,
                                msg=lambda m: f"{method} D={D} graphed vs "
                                f"eager: {m}")
-    walls = {"eager": [], "graphed": []}
-    for mode in ("eager", "graphed", "graphed", "eager"):
-        fn = run if mode == "eager" else (lambda: graph(states, a, b))
-        reps = cfg["reps"] if mode == "eager" else cfg["graph_reps"]
-        walls[mode].append(timed(lambda: [fn() for _ in range(reps)])
-                           / reps)
-    dt = statistics.median(walls["eager"])
-    dt_graphed = statistics.median(walls["graphed"])
 
     # one forward against the one-device SparseRGL: gather on the card;
     # block on the CPU, where #1's plain version runs, so the halo path's
@@ -186,12 +162,8 @@ def partition_row(method, D, model, dev):
                     * want_h.abs())).max())
     torch.testing.assert_close(got, want_h, **PARTITION_TOL,
                                msg=lambda m: f"{method} D={D}: {m}")
-    edges = n * cfg["K"] * cfg["inner"] * GCNConfig().num_layer
-    return dict(method=method, D=D, n=n, halo=halo, seconds=dt,
-                medges_per_s=edges / dt / 1e6, seconds_graphed=dt_graphed,
-                medges_per_s_graphed=edges / dt_graphed / 1e6,
-                capture_s=capture_s, walls=walls, max_abs_err=err,
-                err_over_limit=rel, launches=launches,
+    return dict(method=method, D=D, n=n, halo=halo, capture_s=capture_s,
+                max_abs_err=err, err_over_limit=rel, launches=launches,
                 graph_launches=graph.launches)
 
 
@@ -240,12 +212,9 @@ def mega_row(D, net, dev):
     mesh = make_mesh(data=D, device=dev)
     run = pb.partitioned_mega_rollout(mesh, spec, net, ORCAParams(),
                                       cfg["steps"], cfg["R"])
-    walls = {"eager": [], "graphed": []}
     captured.reset_launch_counts()
-    t = time.perf_counter()
     sh, diag = run(shards)
     torch.cuda.synchronize()
-    walls["eager"].append(time.perf_counter() - t)
     launches = captured.launch_counts()
     want = {k: 0 for k in launches}
     want["fused_block_attention_packed_shared"] = D * 2 * cfg["steps"]
@@ -277,11 +246,6 @@ def mega_row(D, net, dev):
     if {k: float(v) for k, v in g_diag.items()} != diag:
         raise RuntimeError(f"mega D={D}: graphed diagnostics {g_diag} vs "
                            f"eager {diag}")
-    for mode in ("graphed", "graphed", "eager"):
-        walls[mode].append(timed(lambda: (graphed if mode == "graphed"
-                                           else run)(shards)))
-    dt = statistics.median(walls["eager"])
-    dt_graphed = statistics.median(walls["graphed"])
 
     # the one-device loop: dense kNN, kNN ORCA, the gather value net
     one = SparseValueNet(GCNConfig(), backend="gather").to(dev).eval()
@@ -292,10 +256,7 @@ def mega_row(D, net, dev):
     dpos = (sh.pos[sh.active][sh.aid[sh.active].argsort()] - rpos).abs()
     dpos = dpos.amax(-1)
     dvmean = abs(diag["vmean"] - float(rvmean))
-    row = dict(D=D, n=n, seconds=dt, agent_steps_per_s=n * cfg["steps"] / dt,
-               seconds_graphed=dt_graphed,
-               agent_steps_per_s_graphed=n * cfg["steps"] / dt_graphed,
-               capture_s=capture_s, walls=walls,
+    row = dict(D=D, n=n, capture_s=capture_s,
                graph_launches=graphed.graph.launches, **diag,
                max_dvalue=mega_values_check(D, spec, net, sh, dev),
                max_dpos=float(dpos.max()),

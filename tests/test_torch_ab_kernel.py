@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 from relationalgraphlearning_tpu.ops import block_graph as jbg
 from relationalgraphlearning_tpu.ops import pallas_block as jpb
 from relationalgraphlearning_tpu.ops import sparse as jsp
+from relationalgraphlearning_tpu_torch.ops import _build as tbuild
 from relationalgraphlearning_tpu_torch.ops import ab_block as tab
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as tfc
 from relationalgraphlearning_tpu_torch.ops.fused_block import (
@@ -289,7 +290,7 @@ def test_variants_are_the_references_seven():
 
 
 def test_run_on_cpu_gives_one_record_a_variant():
-    tab.reset_launch_counts()
+    tbuild.reset_launch_counts()
     finals = {}
     records = tak.run(rounds=1, reps=1, inner=2, device="cpu", n=N,
                       finals=finals)
@@ -310,12 +311,25 @@ def test_run_on_cpu_gives_one_record_a_variant():
     assert cand.shape == (N // 256, 544)
     assert all(r["coverage"] == float(cov) for r in records[1:])
     assert mbits.shape == (N // 256, 256 // 32, 544)
-    assert tab.launch_counts() == {"ab_block_attention": 0}
+    assert tbuild.launch_counts()["ab_block_attention"] == 0
     # no graph on the CPU: the timed rounds are the eager ones
     for r in records[1:]:
         assert r["graphed"] is False
         assert r["graph_launches"] is None and r["replay_err"] is None
         assert r["gedges_s_eager"] == r["gedges_s"]
+
+
+def test_run_with_no_rounds_gives_the_checked_runs_and_no_rates():
+    finals = {}
+    records = tak.run(rounds=0, inner=1, device="cpu", n=N, finals=finals)
+    assert [r["variant"] for r in records[1:]] == REF_VARIANTS
+    for r in records[1:]:
+        assert not {"gedges_s", "gedges_s_best", "iqr_pct",
+                    "gedges_s_eager"} & set(r)
+        assert r["launches"] == {"ab_block_attention": 0,
+                                 "chunk_block_attention": 0}
+        assert r["coverage"] == float(finals["graph"][2])
+    assert set(finals["h"]) == set(REF_VARIANTS)
 
 
 def test_run_on_cpu_is_each_variants_eager_chain():

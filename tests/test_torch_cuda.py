@@ -184,10 +184,10 @@ def test_cuda_kernel_bf16_rejects_a_mix(dev):
 def test_cuda_fma_chain_matches_plain(dev):
     from relationalgraphlearning_tpu_torch.ops import roofline
     x = torch.ones(1 << 16, device=dev)
-    roofline.reset_launch_counts()
+    tbuild.reset_launch_counts()
     got = roofline.fma_chain(x, 128, 8)
     torch.cuda.synchronize()
-    assert roofline.launch_counts() == {"fma_chain": 1}
+    assert tbuild.launch_counts()["fma_chain"] == 1
     torch.testing.assert_close(got, roofline.fma_chain_plain(x, 128, 8),
                                rtol=0, atol=0)
     assert float(got[0]) == 1 + 1024 * 2.0**-23
@@ -274,11 +274,11 @@ def test_cuda_kernel_row_lanes(dev):
 
 def test_cuda_rollout_counts_two_launches_a_step(dev):
     # the eager run: a graph's launches count once, at its capture
-    tfb.reset_launch_counts()
+    tbuild.reset_launch_counts()
     (pos, vel), vals, cov = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="block", packed=True, block_B=256,
         block_C=576, rebuild_every=2, device=dev, graphed=False)
-    assert tfb.launch_counts()["fused_block_attention_packed_shared"] == 8
+    assert tbuild.launch_counts()["fused_block_attention_packed_shared"] == 8
     assert float(cov) == 1.0 and torch.isfinite(vals).all()
     (pc, vc), valc, _ = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="block", packed=True, block_B=256,
@@ -690,11 +690,11 @@ def test_cuda_aligned_route_matches_plain(dev):
 
 
 def test_cuda_pallas_rollout_counts_two_launches_a_step(dev):
-    tfg.reset_launch_counts()
+    tbuild.reset_launch_counts()
     (pos, vel), vals, cov = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="pallas", rebuild_every=2,
         device=dev, graphed=False)
-    assert tfg.launch_counts()["fused_gather_attention"] == 8
+    assert tbuild.launch_counts()["fused_gather_attention"] == 8
     assert torch.isfinite(vals).all()
     (pc, vc), valc, _ = mega_crowd_rollout(
         n=1024, K=10, steps=4, backend="pallas", rebuild_every=2,
@@ -798,11 +798,11 @@ def test_cuda_ab_harness_chain_counts_one_launch_an_iteration(dev):
     bits = tfb.pack_emask(tbg.block_masks(cols, cand))
     h = torch.randn(2048, 64, generator=g)
     h = (h / h.norm(dim=1, keepdim=True)).to(dev)
-    tab.reset_launch_counts()
+    tbuild.reset_launch_counts()
     f = tak.chain(tak.make_kernel(256, 544, 64, div_after=True), torch.float32,
                   inner=3)
     got = f(h, cand, bits)
-    assert tab.launch_counts() == {"ab_block_attention": 3}
+    assert tbuild.launch_counts()["ab_block_attention"] == 3
     plain = tak.chain(lambda q, x, m: tab.ab_block_attention_plain(
         q, x, m, True), torch.float32, inner=3)(h, cand, bits)
     torch.testing.assert_close(got, plain, **TOL)
@@ -1282,12 +1282,12 @@ def test_cuda_partitioned_block_rgl_launches_kernel_1(dev):
         want = tgp.partitioned_block_rgl(
             model, states, cand, mbits, tmesh.make_mesh(data=4, device="cpu"),
             halo)
-        tfb.reset_launch_counts()
+        tbuild.reset_launch_counts()
         got = tgp.partitioned_block_rgl(
             model.to(dev), states.to(dev), cand.to(dev), mbits.to(dev),
             tmesh.make_mesh(data=4, device=dev), halo)
         torch.cuda.synchronize()
-    counts = tfb.launch_counts()
+    counts = tbuild.launch_counts()
     assert counts["fused_block_attention_packed_shared"] == 4 * 2
     assert counts["fused_block_attention_packed"] == 0
     torch.testing.assert_close(got.cpu(), want, **TOL)
@@ -1307,10 +1307,10 @@ def test_cuda_block_halo_attention_with_values_launches_kernel_2(dev):
             row_sharded=tuple(t.to(device) for t in (q, x, v, cand, mbits)))
 
     want = run("cpu")
-    tfb.reset_launch_counts()
+    tbuild.reset_launch_counts()
     got = run(dev)
     torch.cuda.synchronize()
-    counts = tfb.launch_counts()
+    counts = tbuild.launch_counts()
     assert counts["fused_block_attention_packed"] == 4
     assert counts["fused_block_attention_packed_shared"] == 0
     torch.testing.assert_close(got.cpu(), want, **TOL)
@@ -1331,12 +1331,12 @@ def test_cuda_partitioned_rollout_matches_the_cpu(dev):
             torch.ones(n))
     out = {}
     for device in ("cpu", dev):
-        tfb.reset_launch_counts()
+        tbuild.reset_launch_counts()
         out[device] = tpb.partitioned_mega_rollout(
             tmesh.make_mesh(data=4, device=device), spec, net.to(device),
             TORCAParams(), 8, 2)(tpb.init_crowd_shards(*args, spec,
                                                        device=device))
-    assert tfb.launch_counts()["fused_block_attention_packed_shared"] == \
+    assert tbuild.launch_counts()["fused_block_attention_packed_shared"] == \
         4 * 2 * 8
     (csh, cdiag), (gsh, gdiag) = out["cpu"], out[dev]
     for k in ("band_cov", "win_cov", "overflow", "lost"):

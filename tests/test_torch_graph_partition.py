@@ -30,6 +30,7 @@ from relationalgraphlearning_tpu_torch.configs.base import GCNConfig as TGCN
 from relationalgraphlearning_tpu_torch.convert import sparse_rgl_from_flax
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
     SparseRGL as TRGL)
+from relationalgraphlearning_tpu_torch.ops import _build as tbuild
 from relationalgraphlearning_tpu_torch.ops import fused_block as tfb
 from relationalgraphlearning_tpu_torch.parallel import graph_partition as tgp
 from relationalgraphlearning_tpu_torch.parallel.comm import run_local
@@ -226,7 +227,7 @@ def test_block_halo_attention_matches_jax(jax_mesh, mesh, block_case,
           else _t(jm.view(np.int32)))
     want = _jax_halo(jax_mesh, q, x, v, jnp.asarray(cand), jnp.asarray(jm),
                      halo, shared)
-    tfb.reset_launch_counts()
+    tbuild.reset_launch_counts()
     tq, tx, tv, tc = _t(q), _t(x), _t(v), _t(cand, torch.long)
     if shared:
         got = mesh.run(lambda comm, q, x, c, e: tgp.block_halo_attention(
@@ -235,7 +236,7 @@ def test_block_halo_attention_matches_jax(jax_mesh, mesh, block_case,
         got = mesh.run(lambda comm, *a: tgp.block_halo_attention(
             comm, *a, halo), row_sharded=(tq, tx, tv, tc, tm))
     np.testing.assert_allclose(got.numpy(), want, **FN_TOL)
-    assert not any(tfb.launch_counts().values())   # CPU: plain versions
+    assert not any(tbuild.launch_counts().values())   # CPU: plain versions
 
 
 @pytest.mark.parametrize("halo", ["reach", 8])

@@ -13,7 +13,7 @@ from pathlib import Path
 import torch
 
 from relationalgraphlearning_tpu_torch.ops import (
-    ab_block, fused_block, fused_chunk, fused_gather)
+    _build, ab_block, fused_block, fused_chunk, fused_gather)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "relationalgraphlearning_tpu_torch"
@@ -84,10 +84,7 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 def test_cpu_wrappers_count_no_launch():
-    fused_block.reset_launch_counts()
-    fused_gather.reset_launch_counts()
-    fused_chunk.reset_launch_counts()
-    ab_block.reset_launch_counts()
+    _build.reset_launch_counts()
     g = torch.Generator().manual_seed(0)
     nb, B, C, d, n = 2, 64, 48, 32, 128
     q = torch.randn(nb * B, d, generator=g)
@@ -111,9 +108,9 @@ def test_cpu_wrappers_count_no_launch():
         ab_block.ab_block_attention(
             q.reshape(nb, B, d).to(dtype), xg.to(dtype),
             fused_block.pack_emask(emask), div_after=True, intmask=True)
-    assert fused_block.launch_counts() == {
-        "fused_block_attention_packed_shared": 0,
-        "fused_block_attention_packed": 0, "fused_block_attention": 0}
-    assert fused_gather.launch_counts() == {"fused_gather_attention": 0}
-    assert fused_chunk.launch_counts() == {"chunk_block_attention": 0}
-    assert ab_block.launch_counts() == {"ab_block_attention": 0}
+    counts = _build.launch_counts()
+    assert set(counts) >= {
+        "fused_block_attention_packed_shared", "fused_block_attention_packed",
+        "fused_block_attention", "fused_gather_attention",
+        "chunk_block_attention", "ab_block_attention"}
+    assert not any(counts.values())

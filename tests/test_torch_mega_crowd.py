@@ -33,6 +33,7 @@ from relationalgraphlearning_tpu_torch.envs.orca import (
     ORCAParams as TORCAParams, centralized_orca_step_knn as torca_knn)
 from relationalgraphlearning_tpu_torch.models.sparse_rgl import (
     SparseValueNet as TNet)
+from relationalgraphlearning_tpu_torch.ops import _build as tbuild
 from relationalgraphlearning_tpu_torch.ops import fused_block
 
 N, K, B, C = 512, 10, 64, 256
@@ -105,7 +106,7 @@ def test_rollout_matches_jax(backend, packed, steps, R):
     tnet = TNet(TGCN(), backend=backend)
     tnet.load_state_dict(sparse_value_net_from_flax(
         jax.tree.map(np.asarray, params)))
-    fused_block.reset_launch_counts()
+    tbuild.reset_launch_counts()
     (pos, vel), vals, cov = mega_crowd_rollout(
         n=N, K=K, steps=steps, backend=backend, block_B=B, block_C=C,
         rebuild_every=R, packed=packed, pos=torch.from_numpy(pos0),
@@ -117,7 +118,7 @@ def test_rollout_matches_jax(backend, packed, steps, R):
     np.testing.assert_allclose(vel.numpy(), want_vel, atol=ATOL, rtol=0)
     np.testing.assert_allclose(vals.numpy(), want_vals, atol=ATOL, rtol=0)
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert sum(fused_block.launch_counts().values()) == 0
+    assert sum(tbuild.launch_counts().values()) == 0
 
 
 def test_rollout_seeded_defaults_are_reproducible():

@@ -35,6 +35,7 @@ from relationalgraphlearning_tpu_torch.configs.base import load_config_module
 from relationalgraphlearning_tpu_torch.envs import mega_crowd
 from relationalgraphlearning_tpu_torch.envs import orca as torca
 from relationalgraphlearning_tpu_torch.envs.crowd_sim import CrowdSim
+from relationalgraphlearning_tpu_torch.ops import _build as tbuild
 from relationalgraphlearning_tpu_torch.ops import orca as tok
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
@@ -148,10 +149,10 @@ def test_orca_velocity_runs_the_plain_version_on_the_cpu(case):
             "crafted": _crafted,
             "float64": lambda: [t.double() if t.is_floating_point() else t
                                 for t in _agents(32, 6, 2.0)]}[case]()
-    tok.reset_launch_counts()
+    tbuild.reset_launch_counts()
     got = torca.orca_velocity(*args, PARAMS)
     assert torch.equal(got, torca.orca_velocity_plain(*args, PARAMS))
-    assert tok.launch_counts() == {"orca_velocity": 0}
+    assert tbuild.launch_counts()["orca_velocity"] == 0
 
 
 def _bad(change, M=3):
@@ -180,10 +181,10 @@ def _keep(args):
 ])
 def test_the_kernel_wrapper_raises_before_any_launch(change, M, error,
                                                      match):
-    tok.reset_launch_counts()
+    tbuild.reset_launch_counts()
     with pytest.raises(error, match=match):
         tok.orca_velocity(*_bad(change, M), PARAMS)
-    assert tok.orca_velocity.launches == 0
+    assert tbuild.launch_counts()["orca_velocity"] == 0
 
 
 def test_the_layout_reads_expanded_tables_through_their_strides():
@@ -254,11 +255,11 @@ def test_a_device_counter_is_read_by_snapshot_and_zeroed_by_reset(
 
 # ------------------------------------------------------------ on the card
 def _equal_on_card(args, what):
-    tok.reset_launch_counts()
+    tbuild.reset_launch_counts()
     got = torca.orca_velocity(*args, PARAMS)
     want = torca.orca_velocity_plain(*args, PARAMS)
     torch.cuda.synchronize()
-    assert tok.orca_velocity.launches == 1, what
+    assert tbuild.launch_counts()["orca_velocity"] == 1, what
     assert got.shape == want.shape and got.dtype == torch.float32, what
     bad = (got != want).any(-1)
     assert torch.equal(got, want), (
@@ -425,9 +426,9 @@ def test_cuda_500_cases_equal_with_the_kernel_and_the_plain_version(dev):
         with torch.no_grad():
             return ex.rollout(config.env.sim.test_seed_offset, range(500))
 
-    tok.reset_launch_counts()
+    tbuild.reset_launch_counts()
     got = rollout()
-    assert tok.orca_velocity.launches > 0
+    assert tbuild.launch_counts()["orca_velocity"] > 0
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torca, "orca_velocity", torca.orca_velocity_plain)
         want = rollout()

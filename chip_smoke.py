@@ -94,7 +94,8 @@ Phases, each of which exits non-zero on failure:
    over the 500 cases, graphed and eager (bit for bit), held to its
    ``eval_test.json`` and the JAX per-case outcomes by the same limits,
    its summary printed beside the committed ``diagnosis.json``. None of
-   kernels #1-#7 may launch; ORCA's kernel must (the env's humans).
+   kernels #1-#7 may launch; ORCA's kernel must (the env's humans), and so
+   must MP-RGL's value kernel (the planner).
 9. MP-RGL training (slice 8) at the full width of
    ``configs/icra_benchmark/mp_separate.py``: one captured SGD step held to
    one eager step (and 8 to 8) from the same state and minibatch indices,
@@ -109,7 +110,7 @@ Phases, each of which exits non-zero on failure:
    ``rl_model_best`` and ``metrics.jsonl`` exist and ``rl_model`` restores
    to the live state, with the runs' walls and the capture seconds (the
    rates are the ``mp_rgl.train`` cell's). None of kernels #1-#7 may
-   launch; ORCA's kernel must.
+   launch; ORCA's kernel and MP-RGL's value kernel must.
 10. The paper's baselines (slice 9): the 500 seeded test cases of seven
     rows of its table through ``Explorer.run_cases`` on the card, built as
     the port's CLI builds them: ``sarl``, ``sarl_om``, ``lstm_rl``,
@@ -141,7 +142,8 @@ Phases, each of which exits non-zero on failure:
     captured collection steps against eager ones (the demonstrator, and the
     baseline at ε = 0.5), and ``train_loop.train`` in its debug shrink
     graphed (and, for ``sarl``, eager), with phase 9's checks. None of
-    kernels #1-#7 may launch; ORCA's kernel must.
+    kernels #1-#7 may launch; ORCA's kernel must, and MP-RGL's value
+    kernel may (the MP-RGL runs).
 11. The node-partitioned paths of ``parallel/`` on D ranks run as threads
     on the one card (``LocalComm``, D = 1, 2, 4, 8), the reference's
     ``bench_scaling.py`` protocol at full width (``GCNConfig``, the value
@@ -203,7 +205,14 @@ Phases, each of which exits non-zero on failure:
     linearProgram3 decides; one launch a crowd step and one an env step;
     timed warm and with a cold L2 at the crowd's shapes beside its bound,
     the plain version's eager chain, and the whole kNN step (gathers
-    included) with either. Then bench.py's collection graphed == eager at
+    included) with either. MP-RGL's value kernel (``csrc/rgl_value.cu``)
+    against ``MPRLNetworks.value`` at rtol=atol=1e-5 on the committed
+    ``mprl_td`` weights and states of the evaluation at B=500 (the root
+    clip's 40,500 and the inner clip's 81,000 forwards with shared humans,
+    the nodes' 1,000 and the leaves' 2,000 gathered) and at B=1 (the root
+    clip's 81), each timed warm and with a cold L2 beside its operation
+    bound and the plain version; four launches in a captured evaluation
+    step. Then bench.py's collection graphed == eager at
     B=1024 (16 steps; ORCA's kernel once a step eager and in the step's
     graph, no other kernel),
     and each tool's ``main`` at the reference's sizes (``tools/bench.py``
@@ -212,8 +221,8 @@ Phases, each of which exits non-zero on failure:
     ``chiprun_out/ROOFLINE.json``; ``tools/bench_scaling.py`` and ``--mega``
     with 1 timed replay a row, the reference's 3), printing their lines and
     walls, with exact launches: ORCA's kernel once an env step on
-    bench.py's collection and the planner's, nothing else there and none
-    on a decision; #1 100 times a fused-block chain row (f32 and bf16), 64
+    bench.py's collection and the planner's, MP-RGL's value kernel four
+    times a decision of the planner's, nothing else there; #1 100 times a fused-block chain row (f32 and bf16), 64
     times (and ORCA's 32) a 102,400-agent R=8 rollout, D·2·8 a block-halo
     row and D·2·16 (ORCA's D·16) a mega row; the FMA kernel 16 times in
     ``vpu_peak``. The ``kernels`` line takes ORCA's launches from that
@@ -257,6 +266,7 @@ from relationalgraphlearning_tpu_torch.ops import block_graph as bg
 from relationalgraphlearning_tpu_torch.ops import fused_block as fb
 from relationalgraphlearning_tpu_torch.ops import fused_chunk as fc
 from relationalgraphlearning_tpu_torch.ops import fused_gather as fg
+from relationalgraphlearning_tpu_torch.ops import rgl_value as rgv
 from relationalgraphlearning_tpu_torch.ops import roofline
 from relationalgraphlearning_tpu_torch.ops.sparse import knn_graph_auto
 from relationalgraphlearning_tpu_torch.parallel import distributed
@@ -305,7 +315,7 @@ ROUTE_KERNEL = {"gather_kernel": "fused_gather_attention",
                 "chunk_d32": "chunk_block_attention"}
 SOURCES = ("fused_block_attention.cu", "fused_gather_attention.cu",
            "chunk_block_attention.cu", "ab_block_attention.cu",
-           "roofline.cu", "orca_velocity.cu")
+           "roofline.cu", "orca_velocity.cu", "rgl_value.cu")
 # Kernel #6's four instantiations in the harness: (dtype, div_after,
 # intmask); phase 3c also checks the other four combinations.
 AB_VARIANTS = {"base_f32": (torch.float32, False, False),
@@ -1552,7 +1562,8 @@ def diag_check(dev, model="mp_unicycle"):
 def mprl_phase(dev, report):
     """The four evaluated configurations, each eager and graphed in turns
     (E G, G E, ...). Kernel counts are zeroed before the phase and read
-    after it: this path launches none of #1-#7, and ORCA's kernel."""
+    after it: this path launches none of #1-#7, ORCA's kernel and
+    MP-RGL's value kernel."""
     precision = dict(
         float32_matmul_precision=torch.get_float32_matmul_precision(),
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -1569,7 +1580,7 @@ def mprl_phase(dev, report):
             runs.append(eval_run(run, model, "model_predictive_rl",
                                  overrides, record, dev, order))
         diagnosis = diag_check(dev)
-    launches = _only_orca("the MP-RGL path")
+    launches = _only_orca("the MP-RGL path", plans=True)
     report["mprl"] = dict(precision=precision, runs=runs,
                           diagnosis=diagnosis, launches=launches)
     return launches
@@ -1757,12 +1768,12 @@ def train_checks(dev, config_path, policy, label, eager_debug=True) -> dict:
 
 def train_phase(dev, report):
     """Slice 8's checks and rows. Kernel counts are zeroed before the phase
-    and read after it: training launches none of #1-#7, and ORCA's
-    kernel."""
+    and read after it: training launches none of #1-#7, ORCA's kernel
+    and MP-RGL's value kernel (collection's planner)."""
     captured.reset_launch_counts()
     report["train"] = train_checks(dev, TRAIN_CONFIG, "model_predictive_rl",
                                    "train")
-    launches = _only_orca("the training path")
+    launches = _only_orca("the training path", plans=True)
     report["train"]["launches"] = launches
 
 
@@ -2705,6 +2716,114 @@ def orca_phase(dev, flops, bw, report):
         bound_by=bound_by, library_ms=None)]
 
 
+RGL_VALUE = "rgl_value"
+RGL_VALUE_RUN = "mprl_td"   # the committed weights and config it runs
+
+
+def rgl_value_flops(n: int, groups: int, humans: int) -> int:
+    """Float32 operations (two an FMA) the value kernel does for ``n``
+    forwards whose humans come in ``groups`` groups: each group's humans
+    once (w_h, their rows of X·Wa and X·W1, their scores), then each
+    forward's robot part (w_r, its rows of X·Wa and X·W1, its relation
+    row and column, layer 1's rows, layer 2's row 0, the value network)."""
+    N = humans
+    group = N * (5 * 64 + 64 * 32 + 2 * 32 * 32) + N * N * 32
+    forward = (9 * 64 + 64 * 32 + 2 * 32 * 32 + 32 * (2 * N + 1)
+               + 32 * (N + 1) + 32 * 32 + 32 + N * 32 * (N + 3)
+               + 32 * 32 + 32 * 32 + 32 * 100 + 100 * 100 + 100)
+    return 2 * (groups * group + n * forward)
+
+
+def rgl_value_phase(dev, flops, bw, report):
+    """MP-RGL's value kernel against ``MPRLNetworks.value`` (its plain
+    version) on the committed weights and states of the evaluation at
+    B=500 (the four calls of a d=2 decision) and at B=1 (a decision's root
+    clip); timed warm and with a cold L2 beside its operation bound and the
+    plain version; its launches in one captured evaluation step."""
+    config = load_config_module(
+        str(ROOT / "results" / RGL_VALUE_RUN / "config.py"))
+    env = CrowdSim(config.env, device=dev)
+    policy = make_policy("model_predictive_rl", config.policy, config.env,
+                         device=dev)
+    policy.load_flax(checkpoints.load_flax_tree(RGL_VALUE_RUN))
+    ex = Explorer(env, policy, config.policy.gamma)
+    offset = config.env.sim.test_seed_offset
+    carry = ex.initial_carry(offset, range(500))
+    calls = {}
+    with torch.no_grad():
+        for _ in range(5):  # states a few decisions into the cases
+            carry = type(carry)(*ex.eval_step(*carry))
+        robot = carry.states.robot
+        humans = T.observable(carry.states.humans)
+        for B in (500, 1):
+            r0, h0 = robot[:B], humans[:B]
+            acts, _, nr, nh = policy._clip_actions(r0, h0, policy.width)
+            views = {"root clip": policy._expand(
+                r0, h0, policy._all_actions(r0))[1:]}
+            if B > 1:
+                views["nodes"] = (nr, nh)
+                views["inner clip"] = policy._expand(
+                    nr, nh, policy._all_actions(nr))[1:]
+                views["leaves"] = policy._clip_actions(
+                    nr, nh, policy.width)[2:]
+            for view, (r, h) in views.items():
+                got = policy.value(r, h)
+                want = policy.networks.value(r, h)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                if not torch.allclose(got, want, **TOL):
+                    raise RuntimeError(f"rgl_value vs plain, {view} B={B}: "
+                                       f"max |diff| {err:.3g}")
+                k = r.dim() - 1
+                p = rgv.plan(r.shape[:-1], r.stride()[:k], h.stride()[:k],
+                             h.shape[-2])
+                run = lambda: policy.value(r, h)  # noqa: E731
+                plain = lambda: policy.networks.value(r, h)  # noqa: E731
+                ops = rgl_value_flops(p.n, p.groups, h.shape[-2])
+                bound_ms, bound_by = bound(
+                    4 * (r.numel() + p.groups * h.shape[-2] * 5 + p.n), ops,
+                    flops, bw)
+                calls[f"{view} B={B}"] = dict(
+                    forwards=p.n, group=p.group_size, tiles=p.tiles,
+                    ms=device_ms(run), cold_ms=device_ms_cold(run),
+                    plain_ms=device_ms(plain, reps=20), bound_ms=bound_ms,
+                    bound_by=bound_by, ops=ops, max_abs_err=err,
+                    max_abs_value=scale)
+    # one captured evaluation step: the value kernel four times
+    with torch.no_grad():
+        graph = ex.capture(ex.initial_carry(offset, range(16)))
+    _expect("the MP-RGL evaluation step graph", graph.launches,
+            _want({ORCA_KERNEL: 1, RGL_VALUE: 4}))
+    step = [c for name, c in calls.items() if name.endswith("B=500")]
+    total = {key: sum(c[key] for c in step)
+             for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "ops")}
+    report["kernel_detail"][RGL_VALUE] = dict(
+        run=RGL_VALUE_RUN, calls=calls, step=total,
+        step_launches=graph.launches[RGL_VALUE])
+    for name, c in calls.items():
+        print(f"kernel rgl_value {name}: {c['forwards']} forwards (groups of "
+              f"{c['group']}, {c['tiles']} tiles) {c['ms']:.4f} ms, cold L2 "
+              f"{c['cold_ms']:.4f} ms (plain {c['plain_ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.5f} ms by {c['bound_by']}), max |diff| "
+              f"{c['max_abs_err']:.3g} of |V| <= {c['max_abs_value']:.3g}",
+              flush=True)
+    print(f"kernel rgl_value: an evaluation step's four calls (B=500) "
+          f"{total['ms']:.4f} ms, cold L2 {total['cold_ms']:.4f} ms (plain "
+          f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.5f} ms); "
+          f"{graph.launches[RGL_VALUE]} launches a captured step", flush=True)
+    return [dict(
+        name=RGL_VALUE, route="cuda",
+        source="relationalgraphlearning_tpu_torch/csrc/rgl_value.cu",
+        replaces="none: models/rgl.py + mprl_networks.py value forward "
+                 "(XLA fusion in the JAX package, no pl.pallas_call)",
+        launches=graph.launches[RGL_VALUE],
+        max_abs_err=max(c["max_abs_err"] for c in calls.values()),
+        ms=total["ms"], cold_ms=total["cold_ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"], bound_by="operations", library_ms=None,
+        b1=calls["root clip B=1"])]
+
+
 def collector_check(dev, B=1024, steps=16):
     """bench.py's collection (the linear robot among ORCA humans) graphed
     against eager from the same carry, bit for bit, as phase 9 holds its
@@ -2742,14 +2861,17 @@ def _want(counts=None):
     return want
 
 
-def _only_orca(what):
+def _only_orca(what, plans=False):
     """The launches since the counts were zeroed: ORCA's kernel (the env's
-    step) and none of #1-#7."""
+    step), MP-RGL's value kernel (the planner's; required where ``plans``)
+    and none of #1-#7."""
     launches = captured.launch_counts()
-    if not launches[ORCA_KERNEL] or any(
-            v for k, v in launches.items() if k != ORCA_KERNEL):
-        raise RuntimeError(f"{what}: launches {launches}, want ORCA's kernel "
-                           f"alone")
+    if not launches[ORCA_KERNEL] or (plans and not launches[RGL_VALUE]) or any(
+            v for k, v in launches.items()
+            if k not in (ORCA_KERNEL, RGL_VALUE)):
+        raise RuntimeError(f"{what}: launches {launches}, want ORCA's kernel"
+                           f"{' and' if plans else ','} MP-RGL's value "
+                           f"kernel{'' if plans else ' at most'} alone")
     return launches
 
 
@@ -2781,8 +2903,10 @@ def bench_phase(dev, report):
     head = tool("bench", tb.main, BENCH_ARGS)
     _expect("bench.py's collection", head["collector"]["launches"],
             _want({ORCA_KERNEL: head["line"]["horizon"]}))
-    # the planners' collections: the defaults' 32 steps, one env step each
-    planning = dict(collect=_want({ORCA_KERNEL: 32}), decision=_want())
+    # the planners' collections: the defaults' 32 steps, one env step and
+    # one d=2 decision (four value launches) each
+    planning = dict(collect=_want({ORCA_KERNEL: 32, RGL_VALUE: 4 * 32}),
+                    decision=_want({RGL_VALUE: 4}))
     for part, got in head["planning"]["launches"].items():
         _expect(f"planning {part}", got, planning[part])
     extra = tool("bench_extra", tbe.main, [])
@@ -2877,6 +3001,7 @@ def main() -> int:
     dp_phase(dev, report)
     kernels += bf16_kernel_phase(dev, flops, bw, report)
     kernels += orca_phase(dev, flops, bw, report)
+    kernels += rgl_value_phase(dev, flops, bw, report)
     bench = bench_phase(dev, report)
     # each kernel's launches on the path that runs it (0: no path does);
     # #2's only path is the halo attention with a value table
@@ -2901,7 +3026,9 @@ def main() -> int:
         "fused_block_attention_packed[bf16]": 0,
         "fma_chain": bench["fma"],
         # bench_extra's 102,400-agent R=8 rollout, one a step
-        "orca_velocity": bench["orca"]}
+        "orca_velocity": bench["orca"],
+        # one MP-RGL evaluation step (d=2): four a decision
+        "rgl_value": report["kernel_detail"]["rgl_value"]["step_launches"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
         if row["name"] in partition["k2"]["timing"]:

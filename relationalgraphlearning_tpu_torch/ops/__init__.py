@@ -6,4 +6,4 @@ import of any ``ops`` module on.
 """
 
 from relationalgraphlearning_tpu_torch.ops import (  # noqa: F401
-    ab_block, fused_block, fused_chunk, fused_gather, orca)
+    ab_block, fused_block, fused_chunk, fused_gather, orca, rgl_value)

@@ -36,6 +36,7 @@ from relationalgraphlearning_tpu_torch.envs.reward import estimate_reward
 from relationalgraphlearning_tpu_torch.models.init import lecun_normal_
 from relationalgraphlearning_tpu_torch.models.mprl_networks import (
     MPRLNetworks)
+from relationalgraphlearning_tpu_torch.ops.rgl_value import rgl_value
 from relationalgraphlearning_tpu_torch.policies.action_space import (
     build_action_group_index, build_action_space)
 from relationalgraphlearning_tpu_torch.policies.base import epsilon_greedy
@@ -101,7 +102,13 @@ class ModelPredictiveRLPolicy:
 
     # ------------------------------------------------------------- net calls
     def value(self, robot: Tensor, humans: Tensor) -> Tensor:
-        return self.networks.value(robot, humans)
+        """V(s) [...] of robot [..., 9] and humans [..., N, 5]: on CUDA
+        tensors one launch of the RGL value kernel (``ops/rgl_value.py``)
+        on the canonicalised scene, on CPU ones ``networks.value``."""
+        if not robot.is_cuda:
+            return self.networks.value(robot, humans)
+        robot, humans, _ = self.networks._canon(robot, humans)
+        return rgl_value(self.networks, robot, humans)
 
     def attention(self, robot: Tensor, humans: Tensor) -> Tensor:
         """The value graph model's relation matrix [..., N+1, N+1], for

@@ -16,10 +16,14 @@ import pytest
 import torch
 
 from relationalgraphlearning_tpu_torch import captured
+from relationalgraphlearning_tpu_torch.configs.base import (
+    EnvConfig, PolicyConfig)
 from relationalgraphlearning_tpu_torch.envs import orca as envs_orca
 from relationalgraphlearning_tpu_torch.envs.orca import ORCAParams
 from relationalgraphlearning_tpu_torch.ops import (
     _build, ab_block, fused_block, fused_chunk, fused_gather, roofline)
+from relationalgraphlearning_tpu_torch.policies.model_predictive_rl import (
+    ModelPredictiveRLPolicy)
 
 
 def test_cpu_tensors_are_refused():
@@ -136,6 +140,24 @@ def _orca():
             torch.rand(n, M, generator=g) > 0.3, ORCAParams())
 
 
+class _Planner:
+    """The rgl_value kernel's caller: the planner's value, which takes
+    ``networks.value`` for CPU tensors."""
+
+    @staticmethod
+    def rgl_value(robot, humans):
+        policy = ModelPredictiveRLPolicy(PolicyConfig(), EnvConfig(),
+                                         device="cpu")
+        policy.init_params(torch.Generator().manual_seed(4))
+        return policy.value(robot, humans)
+
+
+def _value():
+    g = torch.Generator().manual_seed(4)
+    humans = torch.randn(3, 1, 5, 5, generator=g)
+    return (torch.randn(3, 81, 9, generator=g), humans.expand(3, 81, 5, 5))
+
+
 # every kernel wrapper of ops/: (its module, CPU arguments)
 WRAPPERS = {
     "fused_block_attention_packed_shared": (fused_block, _shared),
@@ -146,6 +168,7 @@ WRAPPERS = {
     "ab_block_attention": (ab_block, _ab),
     "orca_velocity": (envs_orca, _orca),
     "fma_chain": (roofline, lambda: (torch.ones(8), 4, 2)),
+    "rgl_value": (_Planner, _value),
 }
 
 
@@ -185,6 +208,6 @@ def test_importing_every_ops_module_loads_no_library():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, libs, loaded, bound, mapped, names = out.stdout.strip().split(" ", 5)
-    assert int(n) >= 9 and int(libs) == 6
+    assert int(n) >= 10 and int(libs) == 7
     assert (loaded, bound, mapped) == ("0", "0", "False")
     assert names == str(sorted(WRAPPERS))

@@ -929,8 +929,9 @@ def test_cuda_shared_prediction_matches_the_per_action_expansion(dev):
 def test_cuda_captured_decision_and_step_replays_eager(dev):
     """64 test cases for all 100 steps: the graphed rollout (one decision
     and one env step captured, replayed) equals the eager loop bit for bit,
-    and the graph launches none of kernels #1-#7 and ORCA's kernel once
-    (the env's step)."""
+    and the graph launches none of kernels #1-#7, ORCA's kernel once
+    (the env's step) and MP-RGL's value kernel four times (the d=2
+    decision)."""
     config, _, _, ex = _mprl(dev)
     offset = config.env.sim.test_seed_offset
     with torch.no_grad():
@@ -940,7 +941,7 @@ def test_cuda_captured_decision_and_step_replays_eager(dev):
     assert len(ex._graphs) == 1
     (graph,) = ex._graphs.values()
     assert graph.launches == {**{k: 0 for k in graph.launches},
-                              "orca_velocity": 1}
+                              "orca_velocity": 1, "rgl_value": 4}
     for name, a, b, c in zip(eager._fields, eager, graphed, again):
         torch.testing.assert_close(b, a, rtol=0, atol=0, msg=name)
         torch.testing.assert_close(c, a, rtol=0, atol=0, msg=name)

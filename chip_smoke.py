@@ -84,7 +84,9 @@ Phases, each of which exits non-zero on failure:
    cases through ``Explorer.run_cases`` on the card: ``mprl_td`` at its
    d=2, w=2, the same weights at d=1 and at d=2, w=4, and
    ``mp_unicycle_anneal`` at its d=2, w=8. Each runs eager and graphed (one
-   decision and one env step captured once, replayed 100 times), in turns.
+   decision and one env step captured once, replayed 100 times), in turns,
+   timed but for ``mp_unicycle_anneal``, whose rate is the benchmark cell
+   ``mp_rgl_unicycle.eval500_w8``'s.
    Each run must hold success and collision within 0.010 and nav time
    within 0.20 s of the committed ``eval_test*.json``, agree with the JAX
    package's per-case outcomes (``checkpoints/<run>_test_reference.npz``)
@@ -234,6 +236,7 @@ Details go to ``chiprun_out/chip_smoke.json``. Needs one card and no network.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -249,7 +252,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from benchmarks.counters import fba
+from benchmarks.counters import fba, rgl_value as rgl_count
 from relationalgraphlearning_tpu_torch import captured, checkpoints
 from relationalgraphlearning_tpu_torch import relation_chain as rc
 from relationalgraphlearning_tpu_torch import types as T
@@ -358,6 +361,8 @@ MPRL_RUNS = (("mprl_td", "mprl_td", {}, "eval_test.json"),
 # all.
 MPRL_BOUNDS = dict(success_rate=0.010, collision_rate=0.010,
                    nav_time=0.20)
+# Phase 8's runs whose rate a benchmark cell measures: checked, not timed.
+BENCHMARKED_RUNS = {"mp_unicycle_anneal": "mp_rgl_unicycle.eval500_w8"}
 MPRL_MIN_AGREE = 485
 # Phase 10: (run, model directory, policy, the CLI's overrides, committed
 # record), held to MPRL_BOUNDS and MPRL_MIN_AGREE.
@@ -1411,11 +1416,12 @@ def eval_setup(model, policy, overrides, dev, results=ROOT / "results"):
 
 
 def eval_run(run, model, policy_name, overrides, record, dev, order,
-             results=ROOT / "results", per_case=True):
+             results=ROOT / "results", per_case=True, cell=None):
     """One evaluated configuration's 500 cases, eager and graphed in
     ``order``, and its checks against ``<results>/<model>/<record>`` and,
     with ``per_case``, the JAX package's per-case records. Returns its
-    report."""
+    report. ``cell``: the benchmark cell that measures this program's
+    rate, whose walls are then not reported."""
     config, env, policy, explorer = eval_setup(model, policy_name, overrides,
                                                dev, results)
     sim = config.env.sim
@@ -1471,10 +1477,18 @@ def eval_run(run, model, policy_name, overrides, record, dev, order,
             "return", "danger_frequency", "avg_min_dist")},
         delta=delta, outcome_agree=agree,
         successes_both=int(both_succeed.sum()), same_steps=same_steps,
-        capture_s=capture_s, wall_s=walls["graphed"],
-        wall_s_eager=walls["eager"], order=list(order),
-        env_steps_per_s=steps / walls["graphed"],
-        env_steps_per_s_eager=steps / walls["eager"])
+        capture_s=capture_s, order=list(order))
+    if cell is None:
+        out.update(wall_s=walls["graphed"], wall_s_eager=walls["eager"],
+                   env_steps_per_s=steps / walls["graphed"],
+                   env_steps_per_s_eager=steps / walls["eager"])
+        rate = (f"graphed {walls['graphed']:.3f} s "
+                f"({out['env_steps_per_s']:.0f} env-steps/s), eager "
+                f"{walls['eager']:.3f} s "
+                f"({out['env_steps_per_s_eager']:.0f}), ")
+    else:
+        out["rate_cell"] = cell
+        rate = f"its rate the benchmark cell {cell}'s, "
     planner = policy_name == "model_predictive_rl"
     if planner:
         forwards = policy.rgl_forwards_per_decision()
@@ -1495,10 +1509,7 @@ def eval_run(run, model, policy_name, overrides, record, dev, order,
              f"{sim.test_size}, same steps in {same_steps}/"
              f"{int(both_succeed.sum())} shared successes; " if per_case
              else "") +
-          f"capture {capture_s:.3f} s, graphed "
-          f"{walls['graphed']:.3f} s ({out['env_steps_per_s']:.0f} env-steps"
-          f"/s), eager {walls['eager']:.3f} s "
-          f"({out['env_steps_per_s_eager']:.0f}), "
+          f"capture {capture_s:.3f} s, " + rate
           + (f"{out['rgl_forwards_per_decision']} RGL forwards a decision, "
              if planner else "") + "graphed == eager",
           flush=True)
@@ -1578,7 +1589,8 @@ def mprl_phase(dev, report):
         for i, (run, model, overrides, record) in enumerate(MPRL_RUNS):
             order = ("eager", "graphed")[::1 if i % 2 == 0 else -1]
             runs.append(eval_run(run, model, "model_predictive_rl",
-                                 overrides, record, dev, order))
+                                 overrides, record, dev, order,
+                                 cell=BENCHMARKED_RUNS.get(run)))
         diagnosis = diag_check(dev)
     launches = _only_orca("the MP-RGL path", plans=True)
     report["mprl"] = dict(precision=precision, runs=runs,
@@ -2720,25 +2732,12 @@ RGL_VALUE = "rgl_value"
 RGL_VALUE_RUN = "mprl_td"   # the committed weights and config it runs
 
 
-def rgl_value_flops(n: int, groups: int, humans: int) -> int:
-    """Float32 operations (two an FMA) the value kernel does for ``n``
-    forwards whose humans come in ``groups`` groups: each group's humans
-    once (w_h, their rows of X·Wa and X·W1, their scores), then each
-    forward's robot part (w_r, its rows of X·Wa and X·W1, its relation
-    row and column, layer 1's rows, layer 2's row 0, the value network)."""
-    N = humans
-    group = N * (5 * 64 + 64 * 32 + 2 * 32 * 32) + N * N * 32
-    forward = (9 * 64 + 64 * 32 + 2 * 32 * 32 + 32 * (2 * N + 1)
-               + 32 * (N + 1) + 32 * 32 + 32 + N * 32 * (N + 3)
-               + 32 * 32 + 32 * 32 + 32 * 100 + 100 * 100 + 100)
-    return 2 * (groups * group + n * forward)
-
-
 def rgl_value_phase(dev, flops, bw, report):
     """MP-RGL's value kernel against ``MPRLNetworks.value`` (its plain
     version) on the committed weights and states of the evaluation at
     B=500 (the four calls of a d=2 decision) and at B=1 (a decision's root
-    clip); timed warm and with a cold L2 beside its operation bound and the
+    clip); timed warm and with a cold L2 beside its operation bound (the
+    planning tree's work, ``benchmarks/counters/rgl_value.py``) and the
     plain version; its launches in one captured evaluation step."""
     config = load_config_module(
         str(ROOT / "results" / RGL_VALUE_RUN / "config.py"))
@@ -2746,6 +2745,10 @@ def rgl_value_phase(dev, flops, bw, report):
     policy = make_policy("model_predictive_rl", config.policy, config.env,
                          device=dev)
     policy.load_flax(checkpoints.load_flax_tree(RGL_VALUE_RUN))
+    # each view's groups as the planning tree defines them (the work the
+    # benchmark's roofline counts), in the order the views are built
+    tree_groups = [g for _, _, g in rgl_count.levels(
+        dataclasses.asdict(config))]
     ex = Explorer(env, policy, config.policy.gamma)
     offset = config.env.sim.test_seed_offset
     carry = ex.initial_carry(offset, range(500))
@@ -2766,7 +2769,7 @@ def rgl_value_phase(dev, flops, bw, report):
                     nr, nh, policy._all_actions(nr))[1:]
                 views["leaves"] = policy._clip_actions(
                     nr, nh, policy.width)[2:]
-            for view, (r, h) in views.items():
+            for (view, (r, h)), groups in zip(views.items(), tree_groups):
                 got = policy.value(r, h)
                 want = policy.networks.value(r, h)
                 torch.cuda.synchronize()
@@ -2780,7 +2783,7 @@ def rgl_value_phase(dev, flops, bw, report):
                              h.shape[-2])
                 run = lambda: policy.value(r, h)  # noqa: E731
                 plain = lambda: policy.networks.value(r, h)  # noqa: E731
-                ops = rgl_value_flops(p.n, p.groups, h.shape[-2])
+                ops = rgl_count.call(p.n, groups * B, h.shape[-2])
                 bound_ms, bound_by = bound(
                     4 * (r.numel() + p.groups * h.shape[-2] * 5 + p.n), ops,
                     flops, bw)

@@ -128,7 +128,9 @@ class ModelPredictiveRLPolicy:
         """Evaluate ``actions`` [..., A, 2] from robot [..., 9] and humans
         [..., N, 5] -> (reward estimate [..., A], next_robot [..., A, 9],
         next_humans [..., A, N, 5]). The humans' prediction reads no action:
-        it runs once for the node and its A children share it (a view)."""
+        it runs once for the node and its A children share it (a view); its
+        device time is the phase ``plan.predict``, inside the root clip's
+        or ``v_planning``'s."""
         A = actions.shape[-2]
         robot_b = robot[..., None, :].expand(robot.shape[:-1] + (A, 9))
         humans_b = humans[..., None, :, :].expand(
@@ -136,7 +138,8 @@ class ModelPredictiveRLPolicy:
         r = estimate_reward(robot_b, humans_b, actions, self.env_cfg)
         next_robot = geometry.propagate_full_state(
             robot_b, actions, self.env_cfg.time_step, self.kinematics)
-        next_humans = self.networks.predict_humans(robot, humans)
+        with profiling.device_phase("plan.predict", self.device):
+            next_humans = self.networks.predict_humans(robot, humans)
         nodes = robot.shape[:-1].numel()
         profiling.count("plan.predictor_states", nodes)
         profiling.count("plan.predicted_children", nodes * A)
